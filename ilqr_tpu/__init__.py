@@ -1,8 +1,8 @@
-"""TPU-native constrained-iLQR trajectory-optimization framework.
+"""Batched constrained-iLQR trajectory-optimization framework (JAX, GPU).
 
 A brand-new JAX/XLA/Pallas implementation of the capabilities of the
 reference C++/numpy project ``PuYuuu/toy-example-of-iLQR`` (mounted read-only
-at ``/root/reference`` during development), re-designed TPU-first:
+during development), re-designed batched-first:
 
 - every kernel is written batched-first and ``vmap``-able; per-scenario
   branchy control flow (line search, lambda schedule, convergence) becomes

@@ -13,7 +13,7 @@ Usage:
         [--max-iter 50] [--batch B]
 
 ``--batch B`` solves B perturbed copies of the demo problem in one vmapped
-device call (the TPU-native reading of the same workload) and replays the
+device call (the batched reading of the same workload) and replays the
 first.
 """
 
@@ -40,7 +40,7 @@ def main(argv=None) -> int:
     parser.add_argument("--save", default=None, help="save animation (gif/mp4)")
     parser.add_argument("--no-viz", action="store_true")
     parser.add_argument("--f32", action="store_true",
-                        help="solve in float32 (TPU-native default dtype)")
+                        help="solve in float32 (default float64)")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s] [%(levelname)s] %(message)s")
@@ -56,7 +56,7 @@ def main(argv=None) -> int:
     timer = TicToc()
     timer.tic()
     if args.batch:
-        # TPU-native batch: perturb the start state laterally/longitudinally
+        # batched form: perturb the start state laterally/longitudinally
         key = jax.random.PRNGKey(0)
         dx = 0.5 * jax.random.normal(key, (args.batch, 2), dtype)
         x0_b = jnp.broadcast_to(x0, (args.batch, 4)).at[:, :2].add(dx)

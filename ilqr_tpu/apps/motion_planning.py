@@ -3,7 +3,8 @@
 The framework's equivalent of the reference executable
 ``motion_planning -c <yaml>`` (src/motion_planning.cpp:29-276): load a
 scenario config, build lane geometry + agent routings, run the
-receding-horizon CILQR loop, and render each tick.
+receding-horizon CILQR loop, and render each tick. Solves on the GPU in float64 by default (``--f32`` for
+float32); JAX_PLATFORMS=cpu asks for the CPU.
 
 Usage:
     python -m ilqr_tpu.apps.motion_planning -c configs/scenario_two_straight.yaml
@@ -22,7 +23,7 @@ log = logging.getLogger("ilqr_tpu.motion_planning")
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="TPU-native CILQR motion planning demo")
+    parser = argparse.ArgumentParser(description="CILQR motion planning demo")
     parser.add_argument("-c", "--config", required=True, help="scenario yaml path")
     parser.add_argument("--ticks", type=int, default=None,
                         help="simulation ticks (default: max_simulation_time/dt)")
@@ -35,11 +36,15 @@ def main(argv=None) -> int:
                         help="redraw each tick inside the MPC loop (the "
                         "reference's in-loop rendering, "
                         "src/motion_planning.cpp:182-269)")
-    parser.add_argument("--f32", action="store_true", help="solve in float32 (TPU-native)")
+    parser.add_argument("--f32", action="store_true", help="solve in float32 (default float64)")
     args = parser.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO,
                         format="[%(asctime)s] [%(levelname)s] %(message)s")
+
+    from ilqr_tpu import runtime
+
+    platform = runtime.setup(x64=not args.f32)
 
     import jax.numpy as jnp
     from ilqr_tpu.config import GlobalConfig
@@ -49,7 +54,8 @@ def main(argv=None) -> int:
     from ilqr_tpu.utils.timing import TicToc
 
     dtype = jnp.float32 if args.f32 else jnp.float64
-    log.info("config path: %s", args.config)
+    log.info("config path: %s (platform %s, %s)", args.config, platform,
+             jnp.dtype(dtype).name)
     gc = GlobalConfig.from_file(args.config)
     setup = build_scenario_setup(gc, noise=args.noise, seed=args.seed)
     cfg = CILQRConfig.from_global_config(gc)

@@ -1,5 +1,10 @@
 """YAML configuration system.
 
+The scenario files use a small YAML subset -- nested block maps, block
+lists of flow lists, flow lists, scalars (int, float, bool, quoted or bare
+strings) and ``#`` comments -- which :func:`parse_yaml` reads without a
+third-party YAML package.
+
 Mirrors the semantics of the reference's ``GlobalConfig`` singleton
 (reference: src/global_config.cpp:17-147, include/global_config.hpp:30-34):
 the whole YAML file is flattened into a ``"lqr/N"``-style slash-keyed map,
@@ -14,9 +19,91 @@ batched sweep over *yaml params* needs.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List, Optional
 
-import yaml
+_INT = re.compile(r"[-+]?\d+$")
+_FLOAT = re.compile(r"[-+]?(\d+\.?\d*|\.\d+)([eE][-+]?\d+)?$")
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that is not inside a quoted string."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "\"'":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def _scalar(text: str) -> Any:
+    text = text.strip()
+    if len(text) >= 2 and text[0] == text[-1] and text[0] in "\"'":
+        return text[1:-1]
+    if text.startswith("[") and text.endswith("]"):
+        inner = text[1:-1].strip()
+        return [_scalar(t) for t in inner.split(",")] if inner else []
+    low = text.lower()
+    if low in ("true", "yes", "on"):
+        return True
+    if low in ("false", "no", "off"):
+        return False
+    if low in ("null", "~", ""):
+        return None
+    if _INT.match(text):
+        return int(text)
+    if _FLOAT.match(text):
+        return float(text)
+    return text
+
+
+def parse_yaml(text: str) -> Dict[str, Any]:
+    """Parse the YAML subset of the scenario files into nested dicts/lists.
+
+    A key with no inline value opens a block: a map when the next
+    meaningful line is more indented and holds ``key: value``, a list when
+    it starts with ``- ``.
+    """
+    lines = []
+    for raw in text.splitlines():
+        body = _strip_comment(raw).rstrip()
+        if body.strip():
+            lines.append((len(body) - len(body.lstrip(" ")), body.strip()))
+
+    def block(i: int, indent: int):
+        if lines[i][1].startswith("- "):
+            out = []
+            while i < len(lines) and lines[i][0] == indent \
+                    and lines[i][1].startswith("- "):
+                out.append(_scalar(lines[i][1][2:]))
+                i += 1
+            return out, i
+        out = {}
+        while i < len(lines) and lines[i][0] == indent:
+            key, sep, rest = lines[i][1].partition(":")
+            if not sep:
+                raise ValueError(f"expected 'key: value': {lines[i][1]!r}")
+            key = _scalar(key)
+            i += 1
+            if rest.strip():
+                out[key] = _scalar(rest)
+            elif i < len(lines) and (lines[i][0] > indent or (
+                    lines[i][0] == indent and lines[i][1].startswith("- "))):
+                out[key], i = block(i, lines[i][0])
+            else:
+                out[key] = None
+        return out, i
+
+    if not lines:
+        return {}
+    result, i = block(0, lines[0][0])
+    if i != len(lines):
+        raise ValueError(f"unexpected indentation at: {lines[i][1]!r}")
+    return result
 
 
 # (key, path-in-yaml, type, default-or-None). Mirrors the hard-coded schema in
@@ -97,7 +184,7 @@ class GlobalConfig:
     @classmethod
     def from_file(cls, path: str) -> "GlobalConfig":
         with open(path, "r") as f:
-            raw = yaml.safe_load(f)
+            raw = parse_yaml(f.read())
         return cls.from_dict(raw)
 
     @classmethod

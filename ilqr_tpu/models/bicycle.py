@@ -9,7 +9,7 @@ variants with exactly the reference's discretization:
 
 All functions are shape-polymorphic over leading axes (write once, ``vmap``
 for batch; horizon handled by broadcasting) and dtype-preserving so the same
-code runs float64 parity on CPU and float32/bf16 on TPU. The Jacobian layout
+code runs float64 parity and float32 batches on any device. The Jacobian layout
 matches reference src/utils.cpp:295-309:
   df_dx[k][r, c] = d next_state[r] / d state[c],  df_du similarly.
 """

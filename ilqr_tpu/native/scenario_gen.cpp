@@ -1,6 +1,6 @@
 // Native scenario generator: cubic-spline reference lines + agent routing.
 //
-// The host-side "data loader" of the framework: batched sweeps feed the TPU
+// The host-side "data loader" of the framework: batched sweeps feed the GPU
 // thousands of scenario variants (initial states x obstacle routings x
 // noise draws); generating those on the Python side is a per-tick
 // interpreter loop, so the hot path lives here instead. Same math as

@@ -21,6 +21,7 @@ Parity notes (all against the reference C++):
 from __future__ import annotations
 
 import jax.numpy as jnp
+from jax import lax
 
 from ilqr_tpu.models.bicycle import front_rear_centers, front_rear_center_jacobians
 
@@ -110,8 +111,10 @@ def obstacle_avoidance_constr_grads(ego_state, obs_state, wheelbase, width,
     g_rear_pnt = ellipsoid_safety_margin_grad(rear, obs_state, ab)
     jf, jr = front_rear_center_jacobians(ego_state[..., 3], wheelbase, ref_point)
     # (..., 4, 2) @ (..., 2) -> (..., 4)
-    g_front = jnp.einsum("...sc,...c->...s", jf, g_front_pnt)
-    g_rear = jnp.einsum("...sc,...c->...s", jr, g_rear_pnt)
+    g_front = jnp.einsum("...sc,...c->...s", jf, g_front_pnt,
+                         precision=lax.Precision.HIGHEST)
+    g_rear = jnp.einsum("...sc,...c->...s", jr, g_rear_pnt,
+                         precision=lax.Precision.HIGHEST)
     return g_front, g_rear
 
 

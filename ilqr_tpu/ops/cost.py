@@ -21,10 +21,14 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax import lax
 
 from ilqr_tpu.ops import constraints as C
 from ilqr_tpu.ops.projection import nearest_ref_points
 from ilqr_tpu.types import CILQRConfig, CILQRWeights
+
+# f32 means f32: a GPU would otherwise run these contractions in TF32
+_HIGHEST = lax.Precision.HIGHEST
 
 
 class CostDerivatives(NamedTuple):
@@ -197,10 +201,14 @@ def cost_and_derivatives(cfg: CILQRConfig, w: CILQRWeights, u, x, scenario,
     gamma_u, gamma_x = gamma[:, :4], gamma[:, 4:]
     eta_u, eta_x = eta[:, :4], eta[:, 4:]
 
-    l_u_barrier = jnp.einsum("nc,nci->ni", gamma_u, g_u)
-    l_uu_barrier = jnp.einsum("nc,nci,ncj->nij", eta_u, g_u, g_u)
-    l_x_barrier_k = jnp.einsum("nc,nci->ni", gamma_x, g_x)
-    l_xx_barrier_k = jnp.einsum("nc,nci,ncj->nij", eta_x, g_x, g_x)
+    l_u_barrier = jnp.einsum("nc,nci->ni", gamma_u, g_u,
+                           precision=_HIGHEST)
+    l_uu_barrier = jnp.einsum("nc,nci,ncj->nij", eta_u, g_u, g_u,
+                           precision=_HIGHEST)
+    l_x_barrier_k = jnp.einsum("nc,nci->ni", gamma_x, g_x,
+                           precision=_HIGHEST)
+    l_xx_barrier_k = jnp.einsum("nc,nci,ncj->nij", eta_x, g_x, g_x,
+                           precision=_HIGHEST)
 
     # barrier terms live at steps 1..N; step 0 carries only the prime term
     l_x = l_x_prime.at[1:].add(l_x_barrier_k)

@@ -1,72 +1,75 @@
-"""Fused CILQR solver as a single Pallas TPU kernel.
+"""Fused CILQR solver as one Pallas kernel on the Triton route (NVIDIA GPU).
 
-The XLA-composed solver (ilqr_tpu/solvers/cilqr.py) is launch-bound on TPU:
-one solver iteration is ~2,500 small HLO executions (scanned Riccati steps,
-rollouts, constraint assembly), each microseconds of overhead for nanoseconds
-of math. This kernel runs the *entire* solve -- projection, cost +
-derivative assembly, the 30-step backward Riccati recursion, line-search
-rollouts, the lambda/status state machine -- inside one ``pallas_call``:
-zero dispatch per iteration, everything resident in VMEM/registers.
+The XLA-composed solver (ilqr_tpu/solvers/cilqr.py) pays thousands of small
+operations per solver iteration: scanned Riccati steps, line-search rollout
+scans, constraint assembly, and a predicate read per ``while`` step. This
+kernel runs the *entire* solve -- projection, cost + derivative assembly, the
+backward Riccati recursion, line-search rollouts, the lambda/status state
+machine -- inside one ``pallas_call`` with ``backend="triton"``.
 
-Layout (TPU-native, structure-of-slabs):
-- batch tile of 128 scenarios on the *lane* dimension;
-- horizon on the sublane dimension: every per-step quantity is a
-  (32, 128) slab (N=30 padded to 32 sublanes), e.g. PX[k, b] = x position
-  of scenario b at step k;
-- the 4x4/4x2 Riccati algebra is unrolled with the bicycle Jacobians'
-  sparsity (A = I + 5 entries, B = 4 entries -- reference
-  src/utils.cpp:285-342), so each backward step is ~100 fused
-  multiply-adds on (1, 128) rows;
-- the nearest-reference-point projection works on a per-scenario window of
-  the dense lane line ((W, 128) slabs, gathered once per solve outside the
-  kernel) with a min + first-index one-hot reduction instead of a gather;
-- the projection of the *accepted* trajectory is carried across iterations,
-  so each iteration pays projections only for its line-search trials;
-- per-tile early exit: the outer ``lax.while_loop`` stops when every lane
-  in the tile is done (converged / lambda overflow -- reference
-  src/cilqr_solver.cpp:110-142).
+Layout: one scenario per thread. A program owns ``block`` scenarios (a power
+of two) on the minor axis of every operand; every in-kernel value is a
+``(block,)`` vector, so the solve is per-thread scalar FP32 work with no
+cross-lane traffic except the block-wide "any lane still running" tests of
+the ``while`` loops. Operands are full arrays (no block specs) in a
+``(rows, batch)`` layout, so a per-step row is one coalesced ``(block,)``
+load at ``[row, program_cols]``. Per-step state lives in global memory
+(L1/L2-backed): the current trajectory in the ``u``/``x`` outputs, the
+projection, gains and line-search trials in a scratch output. Only loop
+carries (the Riccati value function, the trial states, running costs)
+stay in registers, so register use does not grow with the horizon.
 
-Semantics match the reference C++ solver in both constraint modes:
-barrier (the mode of all four shipped scenarios) and ALM, whose dual
-state (mu, rho) is kernel I/O since round 2 (``alm_mu0``/``alm_rho0`` in
-:func:`cilqr_solve_pallas`, ``return_alm`` to carry duals across MPC
-ticks). Warm starting is kernel I/O too: pass ``u_init`` (the shifted
+Per solver iteration (reference src/cilqr_solver.cpp:85-153):
+- one backward sweep recomputes the step-k cost derivatives from the stored
+  trajectory and runs the sparse 4x4/4x2 Riccati step on them
+  (src/cilqr_solver.cpp:383-440 with the bicycle Jacobians'
+  sparsity, src/utils.cpp:285-342), writing K and d;
+- the line search evaluates ``ls_chunk`` alphas per pass (1 when
+  ``ls_chunk == 0``): one forward sweep rolls every trial out, projects it
+  onto the reference-line window and sums its cost; each alpha's arithmetic
+  is identical in every chunk width, so results are bitwise-equal to the
+  serial loop;
+- the accepted trial's rows are copied over the current trajectory, and its
+  cost becomes the next iteration's ``ori_cost`` (the same forward-order sum
+  a recomputation would give).
+
+Semantics match the reference C++ solver in both constraint modes: barrier
+and ALM, whose dual state (mu, rho) is kernel I/O (``alm_mu0``/``alm_rho0``,
+``return_alm``). Warm starting is kernel I/O too (``u_init``, the shifted
 previous solution, reference src/cilqr_solver.cpp:163-180).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
-
-import numpy as np
 import jax
+import numpy as np
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from ilqr_tpu.types import CILQRConfig, CILQRWeights, Scenario, SolveStats, SolveStatus
+from ilqr_tpu.types import CILQRConfig, CILQRWeights, SolveStats, SolveStatus
 
-LANES = 128
-NH = 32  # horizon slab sublanes (N = 30 -> rows 0..30 used)
 W_BACK = 64  # window rows behind the ego's initial projection
+BLOCK = 32  # scenarios per program: one warp, one scenario per thread
 
-# perf-attribution probe (results are WRONG when set; timing only):
-#   CILQR_KERNEL_PROBE=noproj  -- skip line-search trial projections
-import os as _os
-_PROBE = _os.environ.get("CILQR_KERNEL_PROBE", "")
-# resume-state debug probe (results are WRONG when set): the resume-variant
-# kernel reports what it READ from the resume slab -- final_cost slot gets
-# lamb0, final_lamb slot gets active0 + 10*status0 + 1000*iters0
-_RESUME_PROBE = _os.environ.get("CILQR_RESUME_PROBE", "") == "1"
+# Extra window rows above the per-step search bound (row limit for step k =
+# round8(w_back + PROJ_SLACK + k * proj_rows_per_step)).
+PROJ_SLACK = 16
 
-# weight vector layout (rows of the (32, 1) SMEM input)
+# weights input layout: solver scalars, then the lockstep iteration range
+# [it0, max_iter) of this call
 (_DT, _WB, _WIDTH, _LENGTH, _DSAFE, _VMAX, _VMIN, _AMAX, _AMIN, _STL,
  _WPOS, _WVEL, _WYAW, _WACC, _WSTL, _SQ1, _SQ2, _OQ1, _OQ2,
  _ILAMB, _LDECAY, _LAMP, _LMAX, _CONV, _ACCEPT, _ECLIP,
- _ALM_GAMMA, _MAX_RHO, _MAX_MU, _RHO_INIT) = range(30)
+ _ALM_GAMMA, _MAX_RHO, _MAX_MU, _RHO_INIT, _IT0, _MAXIT) = range(32)
 _NWTS = 32
+
+# obstacle input quantities (cos/sin of the heading are precomputed)
+_OX, _OY, _OC, _OS = range(4)
 
 
 def _alpha_count(min_alpha: float) -> int:
@@ -77,165 +80,80 @@ def _alpha_count(min_alpha: float) -> int:
     return n
 
 
-def _build_kernel(N: int, M: int, W: int, max_iter: int, n_alphas: int,
-                  rear_center: bool, use_alm: bool,
-                  resume: bool = False, it0: int = 0,
-                  row_limits=None, G: int = 1, ls_chunk: int = 0,
-                  proj_dot: bool = False, proj_fold: bool = False):
-    """Returns the kernel body function (closed over static shapes).
+_I0 = np.int32(0)  # int32 loop bounds keep index arithmetic 32-bit under x64
 
-    In ALM mode the per-constraint dual state (mu slabs, one per constraint
-    column in the reference's layout, plus the scalar rho) lives in the
-    iteration carry; duals update on line-search exhaustion exactly like
-    the reference (src/cilqr_solver.cpp:377-379, 622-676). The dual state
-    is kernel I/O: an extra input slab seeds (mu, rho) -- zeros + rho_init
-    reproduces the reference's cold reset (:88-93), a previous solve's
-    output is a warm-start carry (:94-102) -- and an extra output slab
-    returns the final duals, so ALM composes with MPC warm starts and with
-    straggler compaction.
 
-    ``resume``: the kernel takes one extra (8, 128) input in the stats_out
-    layout and restarts the solver loop mid-flight from it at lockstep
-    iteration ``it0``. This is exact because the full iteration carry is
-    reconstructible: the trajectory is the deterministic rollout of the
-    carried controls from x0 (forward() produces exactly that rollout),
-    its projection is a pure function of the trajectory, and the remaining
-    scalars (lambda, status, converged/overflow flags, iteration counts)
-    ride the stats slab; in ALM mode the dual slabs ride the ALM I/O slab.
-    Used for straggler compaction (see ``cilqr_solve_pallas``).
+def _pow2_neg(te):
+    """Exact 2**-te for an int32 scalar 0 <= te < 127 (bit construction, so
+    no transcendental approximation can perturb the line-search alphas)."""
+    return lax.bitcast_convert_type((127 - te) << 23, jnp.float32)
 
-    ``G`` (group-interleaved layout): each tile carries G*128 scenarios.
-    Slab row k*G+g holds step k of scenario group g, so every per-step
-    quantity is a (G, 128) value -- a *full vector register* at G=8
-    instead of the 1/8-utilized replicated (1, 128) rows of the G=1
-    layout, and per-step row extraction becomes an aligned slice instead
-    of a masked slab reduction. Horizon reductions become log-depth
-    aligned-halves folds and the projection argmin a single
-    first-match-wins pair fold (see ``project``); fold order differs from
-    jnp reductions, so G>1 matches G=1 statistically (same convergence
-    behavior), not bitwise. G=1 preserves the original code paths exactly.
 
-    ``ls_chunk`` (chunked line search, G=1 only): evaluate line-search
-    trials in chunks of this many alphas, with ALL of a chunk's trial
-    rollouts packed into one (ls_chunk, 128) sublane chain
-    (``forward_packed``). The serial early-exit loop pays its N-step
-    dependent rollout chain once per *trial*, and the whole tile waits for
-    its straggliest lane -- measured on the bench workload
-    (tools/measure_ls_trials.py): 28.7% of solver iterations exhaust all
-    20 alphas (the reference's line-search failure path,
-    src/cilqr_solver.cpp:340-380) and the 128-lane lockstep max averages
-    ~13 trials/iteration. Chunking caps that at ceil(20/ls_chunk) chains.
-    Projection, cost, and the accept/converge updates run per alpha
-    through the SAME code as the serial loop on sublane-extracted rows,
-    and alphas are exact powers of two, so results are bitwise-identical
-    to ls_chunk=0 -- modulo sign of zero: the masked-sum sublane
-    extraction (``_sub``) maps -0.0 to +0.0, which no downstream
-    comparison distinguishes (round-3 advisor note; the equality tests
-    use array_equal, where -0.0 == +0.0). 0 = the serial early-exit loop.
+def _build_kernel(N: int, M: int, W: int, n_alphas: int, rear_center: bool,
+                  use_alm: bool, block: int, cw: int, proj_dot: bool,
+                  proj_bound):
+    """Returns (kernel body, scratch rows), closed over static shapes.
 
-    ``proj_dot`` (G=1 only): score the nearest-point search with the
-    expanded dot form ``c_r' - 2 (rx' x' + ry' y')`` in coordinates
-    centered on window row 0 (primes; c_r' and the -2-scaled centered
-    window slabs hoisted once per solve) instead of the squared distance
-    ``(x-rx)^2 + (y-ry)^2`` -- 2 FMAs per window row instead of 5 ops,
-    on the largest single term of kernel time (trial projections, ~29%
-    -- docs/PERFORMANCE.md "Where the kernel time goes"). Centering
-    keeps the score's f32 error proportional to the window extent
-    rather than |coords|^2, so the mode stays sound for reference lines
-    far from the origin (round-4 advisor finding). The two forms share
-    the same exact-arithmetic argmin but round differently in f32, so
-    near-ties can pick different window rows; like groups=8 this mode
-    matches the default statistically (validated per-scenario on
-    hardware), not bitwise.
+    Every call resumes: it reads the per-row solver state (iteration count,
+    status, flags, lambda) from a stats input and runs lockstep iterations
+    ``it0 <= it < max_iter``, both read at run time from the weights
+    vector, so the capped first pass and every straggler-compaction resume
+    are the same compiled kernel. Resuming is exact: the trajectory is the
+    deterministic rollout of the carried controls from x0, its projection
+    and cost are pure functions of it, and in ALM mode the duals ride the
+    ALM I/O rows. A cold start is the resume from zero iterations with
+    lambda = init_lamb.
 
-    ``proj_fold`` (G=1 only): replace the min + first-index one-hot +
-    masked-sum projection reduction with the G>1-style pair fold
-    carrying (score, x, y, yaw) -- one log-depth fold instead of ~7
-    full passes over the (R, 128) window. Tournament tie-breaking
-    (see the G>1 comment in ``project``), so also a statistical mode;
-    composes with ``proj_dot``.
+    ``cw``: line-search alphas per forward sweep. The trials of one sweep
+    are the rows of a (CWP, block) tensor, CWP = next power of two >= cw
+    (rows >= cw are inert); every row's arithmetic is the serial loop's.
+
+    ``proj_bound``: None (every projection scans the whole window) or
+    ``(w_back, slack, rows_per_step)``: step k scans window rows
+    [0, round8(w_back + slack + k * rows_per_step)).
     """
-    f32 = jnp.float32
-    C = 8 + 2 * M  # constraint columns (ALM dual layout)
-    NHG = NH * G
-    assert G == 1 or G == 8, "G must be 1 (replicated rows) or 8 (vreg rows)"
-    assert ls_chunk == 0 or G == 1, "chunked line search is G=1 only"
-    assert not (proj_dot and G > 1), "proj_dot is G=1 only"
-    assert not (proj_fold and G > 1), "proj_fold is G=1 only"
+    f32, i32 = jnp.float32, jnp.int32
+    NP = N + 1
+    CWP = pl.next_power_of_2(cw)
+    n_chunks = -(-n_alphas // cw)
+    # scratch rows: projection index of the current trajectory, gains,
+    # trial slots (quantity q, step k, trial j at TR0 + (q*NP + k)*CWP + j;
+    # quantities ua, us, px, py, pv, ph, idx)
+    IX0 = 0
+    KG0 = NP
+    TR0 = KG0 + 10 * N
+    scratch_rows = TR0 + 7 * NP * CWP
 
-    def kernel(*refs):
-        (wts_ref, x0_ref, uinit_ref, rx_ref, ry_ref, ryaw_ref,
-         ox_ref, oy_ref, oyaw_ref) = refs[:9]
-        i = 9
-        resume_ref = None
-        if resume:
-            resume_ref = refs[i]
-            i += 1
-        alm_ref = None
+    def kernel(w_ref, x0_ref, uinit_ref, stats_ref, win_ref, obs_ref, *refs):
         if use_alm:
-            # ALM dual-state input: C mu slabs + a trailing 8-step-row block
-            # whose first row is rho (see _pack_alm in cilqr_solve_pallas).
-            # Zero mu + rho_init == the reference's cold reset
-            # (src/cilqr_solver.cpp:88-93); nonzero input is a warm-start /
-            # straggler-resume carry.
-            alm_ref = refs[i]
-            i += 1
-        u_out, x_out, stats_out = refs[i:i + 3]
-        alm_out = refs[i + 3] if use_alm else None
-        row_iota = lax.broadcasted_iota(jnp.int32, (NHG, LANES), 0)
-        step_iota = row_iota // G if G > 1 else row_iota
-        state_mask = (step_iota >= 1) & (step_iota <= N)  # steps 1..N
-        ctrl_mask = step_iota <= N - 1  # steps 0..N-1
-        quad_mask = step_iota <= N  # steps 0..N
+            alm_in, u_out, x_out, st_out, alm_out, scr = refs
+        else:
+            u_out, x_out, st_out, scr = refs
+            alm_in = alm_out = None
 
-        def _row(S, k):
-            """Extract step k of a slab as a (G, 128) value.
+        c0 = pl.program_id(0) * block
+        cols = pl.ds(c0, block)
+        lanes = c0 + lax.iota(i32, block)
 
-            G=1: masked reduce producing a *replicated* sublane layout
-            (Mosaic cannot relayout offset row slices to the replicated
-            layout broadcasts need, so the reduce -- which is born
-            replicated -- stands in for ``S[k:k+1]``).
-            G=8: rows k*G..(k+1)*G are a sublane-aligned full-vreg slice;
-            no relayout is needed because every per-step value is (8, 128)
-            and all arithmetic between them is elementwise."""
-            if G > 1:
-                return S[k * G:(k + 1) * G]
-            ri = lax.broadcasted_iota(jnp.int32, S.shape, 0)
-            return jnp.sum(jnp.where(ri == k, S, 0.0), axis=0, keepdims=True)
+        def ld(ref, row):
+            return ref[jnp.asarray(row, i32), cols]
 
-        def _tile_rows(p, n):
-            """(G, 128) -> (n*G, 128) with row w*G+g = p[g] (doubling
-            concats: log2(n) copies instead of a broadcast relayout)."""
-            out, m = p, 1
-            while m * 2 <= n:
-                out = jnp.concatenate([out, out], axis=0)
-                m *= 2
-            if m < n:
-                out = jnp.concatenate([out, out[:(n - m) * G]], axis=0)
-            return out
+        def st(ref, row, val, mask=None):
+            row = jnp.asarray(row, i32)
+            if mask is None:
+                ref[row, cols] = val
+            else:
+                pltriton.store(ref.at[row, cols], val, mask=mask)
 
-        def _fold_sum(S):
-            """Sum over steps: (n*G, 128) -> (G, 128) by aligned-halves
-            folding (every slice boundary is a multiple of G=8 sublanes)."""
-            n = S.shape[0] // G
-            while n > 1:
-                h = n // 2
-                top = S[h * G:2 * h * G]
-                S = S[:h * G] + top if n % 2 == 0 else jnp.concatenate(
-                    [S[:h * G] + top, S[2 * h * G:]], axis=0)
-                n = n - h
-            return S
+        def gat(ref, rows):
+            """Per-lane rows of ``ref`` (rows has shape (..., block))."""
+            return ref[rows, jnp.broadcast_to(lanes, rows.shape)]
 
-        def _hsum(S):
-            """Horizon reduction of a masked slab -> per-scenario row."""
-            if G > 1:
-                return _fold_sum(S)
-            return jnp.sum(S, axis=0, keepdims=True)
-        w = lambda i: wts_ref[i, 0]
-        dt, wb = w(_DT), w(_WB)
-        width, length, d_safe = w(_WIDTH), w(_LENGTH), w(_DSAFE)
-        sq1, sq2, oq1, oq2 = w(_SQ1), w(_SQ2), w(_OQ1), w(_OQ2)
-        eclip = w(_ECLIP)
+        wv = [w_ref[j] for j in range(_NWTS)]
+        dt, wb = wv[_DT], wv[_WB]
+        width, length, d_safe = wv[_WIDTH], wv[_LENGTH], wv[_DSAFE]
+        sq1, sq2, oq1, oq2 = wv[_SQ1], wv[_SQ2], wv[_OQ1], wv[_OQ2]
+        eclip = wv[_ECLIP]
         # inflated ellipse axes (reference src/utils.cpp:387-393, with the
         # ego disc radius = width / 2 from src/cilqr_solver.cpp:330)
         ell_a = 0.5 * length + 6.0 * d_safe + 0.5 * width
@@ -243,220 +161,79 @@ def _build_kernel(N: int, M: int, W: int, max_iter: int, n_alphas: int,
         inv_a2 = 1.0 / (ell_a * ell_a)
         inv_b2 = 1.0 / (ell_b * ell_b)
 
-        x0s = x0_ref[:, :]  # (8*G, 128)
-        x0 = [_row(x0s, i) for i in range(4)]  # rows (G, 128)
-        rb_hi = _row(x0s, 4)
-        rb_lo = _row(x0s, 5)
-        ref_velo = _row(x0s, 6)
-        up_bound = rb_hi - width * 0.5
-        lo_bound = rb_lo + width * 0.5
-
-        # slab-shaped copies of per-scenario rows used against (NHG, 128)
-        # slabs (G=1 rows broadcast for free; G>1 needs explicit tiling)
-        if G > 1:
-            ref_velo_s = _tile_rows(ref_velo, NH)
-            up_bound_s = _tile_rows(up_bound, NH)
-            lo_bound_s = _tile_rows(lo_bound, NH)
-        else:
-            ref_velo_s, up_bound_s, lo_bound_s = ref_velo, up_bound, lo_bound
-
-        rx, ry, ryaw = rx_ref[:, :], ry_ref[:, :], ryaw_ref[:, :]  # (W*G, 128)
-        widx = lax.broadcasted_iota(jnp.int32, (W * G, LANES), 0)
-        if G > 1:
-            widx = widx // G  # window-sample index per interleaved row
+        x0 = [ld(x0_ref, q) for q in range(4)]
+        ref_velo = ld(x0_ref, 6)
+        up_bound = ld(x0_ref, 4) - width * 0.5
+        lo_bound = ld(x0_ref, 5) + width * 0.5
+        zeros = x0[0] * 0.0
         if proj_dot:
-            # hoisted once per solve (loop-invariant): nearest-point score
-            # in CENTERED coordinates, c_r' - 2(rx' x' + ry' y') with
-            # r' = r - r0, p' = p - r0 and r0 = window row 0 per lane.
-            # Centering restores translation invariance (round-4 advisor):
-            # the raw dot form's f32 score error grows as |coords|^2 * eps,
-            # so far-from-origin reference lines (~1e3-1e4 m) would drown
-            # near-minimum gaps in rounding noise; after centering the
-            # error scales with the ~40 m window extent instead. The
-            # ordering is unchanged in exact arithmetic: score'(r) =
-            # |r - p|^2 - |p - r0|^2, a per-(step, lane) constant offset.
-            # Inner loop still 2 FMAs per row; the p' shift is 2 subs per
-            # step outside the row loop.
-            cx0 = rx[:1]  # (1, LANES); proj_dot is G=1 so rx is (W, LANES)
-            cy0 = ry[:1]
-            rxc = rx - cx0
-            ryc = ry - cy0
-            p_cr = rxc * rxc + ryc * ryc
-            p_nx = -2.0 * rxc
-            p_ny = -2.0 * ryc
-        OX = ox_ref[:, :]  # (M * NHG, 128)
-        OY = oy_ref[:, :]
-        OTH = oyaw_ref[:, :]
+            cx0 = ld(win_ref, 0)
+            cy0 = ld(win_ref, W)
 
-        # -- primitives ---------------------------------------------------
+        # -- per-step primitives -------------------------------------------
+        def heading_trig(s):
+            return jnp.cos(s[3]), jnp.sin(s[3])
+
         def _beta_trig(us):
-            """sin/cos of beta = arctan(tan(us)/2) without atan (Mosaic has
-            no atan lowering): sin = (t/2)/sqrt(1+t^2/4), cos = 1/sqrt(...).
-            This is the DYNAMICS beta (src/utils.cpp:265)."""
+            """sin/cos of the DYNAMICS beta = arctan(tan(us)/2)
+            (src/utils.cpp:265)."""
             t = jnp.tan(us)
             inv = lax.rsqrt(1.0 + 0.25 * t * t)
             return 0.5 * t * inv, inv
 
         def _beta_jac_trig(us):
             """sin/cos of the JACOBIAN's beta = arctan(tan(us / 2)) -- the
-            reference quirk at src/utils.cpp:292 (`(u/2).tan().atan()`),
-            deliberately different from the dynamics beta; atan-free via
-            sin = t/sqrt(1+t^2), cos = 1/sqrt(1+t^2) with t = tan(us/2)."""
+            reference quirk at src/utils.cpp:292, deliberately different
+            from the dynamics beta."""
             t = jnp.tan(0.5 * us)
             inv = lax.rsqrt(1.0 + t * t)
             return t * inv, inv
 
-        def propagate(px, py, pv, pyaw, ua, us):
+        def propagate(s, trig, ua, us):
+            px, py, pv, pyaw = s
+            cy_, sy_ = trig
             if rear_center:
-                nx = px + pv * jnp.cos(pyaw) * dt
-                ny = py + pv * jnp.sin(pyaw) * dt
-                nv = pv + ua * dt
-                nyaw = pyaw + pv * jnp.tan(us) * dt / wb
+                return (px + pv * cy_ * dt, py + pv * sy_ * dt, pv + ua * dt,
+                        pyaw + pv * jnp.tan(us) * dt / wb)
+            sinb, cosb = _beta_trig(us)
+            cby = cosb * cy_ - sinb * sy_  # cos(beta + yaw)
+            sby = sinb * cy_ + cosb * sy_  # sin(beta + yaw)
+            return (px + pv * cby * dt, py + pv * sby * dt, pv + ua * dt,
+                    pyaw + 2.0 * pv * sinb * dt / wb)
+
+        def project(px, py, k):
+            """Window row of the first nearest sample for each query,
+            streamed one window row at a time (one coalesced load per
+            quantity per row, shared by all queries)."""
+            if proj_bound is None:
+                R = W
             else:
-                sinb, cosb = _beta_trig(us)
-                cy_, sy_ = jnp.cos(pyaw), jnp.sin(pyaw)
-                cby = cosb * cy_ - sinb * sy_  # cos(beta + yaw)
-                sby = sinb * cy_ + cosb * sy_  # sin(beta + yaw)
-                nx = px + pv * cby * dt
-                ny = py + pv * sby * dt
-                nv = pv + ua * dt
-                nyaw = pyaw + 2.0 * pv * sinb * dt / wb
-            return nx, ny, nv, nyaw
+                wbk, slack, rps = proj_bound
+                R = jnp.minimum(W, (wbk + slack + k * rps + 7) // 8 * 8)
+            if proj_dot:
+                # centered dot form c' - 2 (rx' x' + ry' y') with r' = r - r0
+                # and p' = p - r0: the squared distance's exact-arithmetic
+                # argmin, with rounding error at window scale
+                qx, qy = px - cx0, py - cy0
+            else:
+                qx, qy = px, py
 
-        def _stack(rows):
-            """(G, 128) per-step rows -> (NHG, 128) slab (zero-padded)."""
-            pad = NHG - len(rows) * G
-            if pad:
-                rows = rows + [jnp.zeros((pad, LANES), f32)]
-            return jnp.concatenate(rows, axis=0)
-
-        def rollout(UA, US):
-            rxs, rys, rvs, rhs = [x0[0]], [x0[1]], [x0[2]], [x0[3]]
-            cx, cy, cv, ch = x0
-            for k in range(N):
-                cx, cy, cv, ch = propagate(cx, cy, cv, ch,
-                                           _row(UA, k), _row(US, k))
-                rxs.append(cx)
-                rys.append(cy)
-                rvs.append(cv)
-                rhs.append(ch)
-            return _stack(rxs), _stack(rys), _stack(rvs), _stack(rhs), rxs, rys
-
-        def project(pxr, pyr):
-            """Nearest window row per (step, lane): first-min one-hot.
-
-            Takes per-step (1, 128) position rows (length N+1 lists) so
-            rollout/forward outputs feed in without slab re-extraction.
-
-            With ``row_limits`` the search for step k only scans window rows
-            [0, row_limits[k]): the initial projection sits at row <=
-            W_BACK (window-gather invariant), and step k cannot progress
-            more than ~k * v * dt / 0.1 samples along the line, so a bound
-            of W_BACK + slack + k * rows_per_step covers every reachable
-            nearest row. Restricting the scan can only *raise* a trial's
-            tracking/border cost (min over a subset), so a bound that never
-            binds on accepted trajectories leaves solutions unchanged
-            (validated on all four scenarios, tools/validate_kernel_tpu.py).
-            """
-            kxs, kys, khs = [], [], []
-            for k in range(N + 1):
-                R = W if row_limits is None else row_limits[k]
+            def body(r, carry):
+                best, idx = carry
                 if proj_dot:
-                    # centered ego query (see the p_cr hoist comment)
-                    pxk = pxr[k] - cx0
-                    pyk = pyr[k] - cy0
-                if proj_fold and G == 1:
-                    # G=1 variant of the G>1 pair fold below: one
-                    # log-depth fold carrying (score, x, y, yaw) replaces
-                    # the min + first-index one-hot + 3 masked sums (~7
-                    # full passes over the (R, 128) window). Tournament
-                    # tie-breaking instead of first-match (see the G>1
-                    # comment) -> statistical mode like proj_dot.
-                    if proj_dot:
-                        s0 = p_cr[:R] + p_nx[:R] * pxk + p_ny[:R] * pyk
-                    else:
-                        dxf = rx[:R] - pxr[k]
-                        dyf = ry[:R] - pyr[k]
-                        s0 = dxf * dxf + dyf * dyf
-                    vals = (s0, rx[:R], ry[:R], ryaw[:R])
-                    n = R
-                    while n > 1:
-                        h = n // 2
-                        lo = tuple(v[:h] for v in vals)
-                        hi = tuple(v[h:2 * h] for v in vals)
-                        better = hi[0] < lo[0]
-                        merged = tuple(jnp.where(better, b, a)
-                                       for a, b in zip(lo, hi))
-                        if n % 2:
-                            merged = tuple(
-                                jnp.concatenate([m_, v[2 * h:]], axis=0)
-                                for m_, v in zip(merged, vals))
-                        vals = merged
-                        n = n - h
-                    kxs.append(vals[1])
-                    kys.append(vals[2])
-                    khs.append(vals[3])
-                    continue
-                if G > 1:
-                    # argmin as one pair fold carrying (d2, x, y, yaw).
-                    # Strict less-than keeps the lower slot on ties at each
-                    # level, but slot order stops tracking original window-
-                    # row order after the first level, so tie-breaking is
-                    # tournament-order, NOT first-match. This is exact for
-                    # the ties this kernel actually produces (repeated tail
-                    # window rows carry identical x/y/yaw, so any winner
-                    # yields the same projected values); do not rely on
-                    # first-match index semantics here.
-                    rxk, ryk, rhk = rx[:R * G], ry[:R * G], ryaw[:R * G]
-                    dx = rxk - _tile_rows(pxr[k], R)
-                    dy = ryk - _tile_rows(pyr[k], R)
-                    vals = (dx * dx + dy * dy, rxk, ryk, rhk)
-                    n = R
-                    while n > 1:
-                        h = n // 2
-                        lo = tuple(v[:h * G] for v in vals)
-                        hi = tuple(v[h * G:2 * h * G] for v in vals)
-                        better = hi[0] < lo[0]
-                        merged = tuple(jnp.where(better, b, a)
-                                       for a, b in zip(lo, hi))
-                        if n % 2:
-                            merged = tuple(
-                                jnp.concatenate([m_, v[2 * h * G:]], axis=0)
-                                for m_, v in zip(merged, vals))
-                        vals = merged
-                        n = n - h
-                    kxs.append(vals[1])
-                    kys.append(vals[2])
-                    khs.append(vals[3])
-                    continue
-                rxk, ryk, rhk, wk = rx[:R], ry[:R], ryaw[:R], widx[:R]
-                if proj_dot:
-                    d2 = p_cr[:R] + p_nx[:R] * pxk + p_ny[:R] * pyk
+                    d2 = (ld(win_ref, 5 * W + r) + ld(win_ref, 6 * W + r) * qx
+                          + ld(win_ref, 7 * W + r) * qy)
                 else:
-                    dx = rxk - pxr[k]
-                    dy = ryk - pyr[k]
+                    dx = ld(win_ref, r) - qx
+                    dy = ld(win_ref, W + r) - qy
                     d2 = dx * dx + dy * dy
-                m = jnp.min(d2, axis=0, keepdims=True)
-                sel = jnp.where(d2 <= m, wk, jnp.int32(2**30))
-                i0 = jnp.min(sel, axis=0, keepdims=True)
-                hot = (wk == i0).astype(f32)
-                kxs.append(jnp.sum(hot * rxk, axis=0, keepdims=True))
-                kys.append(jnp.sum(hot * ryk, axis=0, keepdims=True))
-                khs.append(jnp.sum(hot * rhk, axis=0, keepdims=True))
-            return _stack(kxs), _stack(kys), _stack(khs)
+                better = d2 < best
+                return jnp.where(better, d2, best), jnp.where(better, r, idx)
 
-        def barrier(c, q1, q2):
-            return q1 * jnp.exp(jnp.minimum(q2 * c, eclip))
+            init = (jnp.full(px.shape, jnp.inf, f32), jnp.zeros(px.shape, i32))
+            return lax.fori_loop(_I0, jnp.asarray(R, i32), body, init)[1]
 
-        def pen_val(c, q1, q2, mu, rho):
-            """Penalty value for one constraint column (barrier or ALM,
-            include/cilqr_solver.hpp:80-83)."""
-            if use_alm:
-                shifted = c + mu / rho
-                return jnp.where(shifted > 0, 0.5 * rho * shifted * shifted, 0.0)
-            return barrier(c, q1, q2)
-
-        def pen3(c, q1, q2, mu, rho):
+        def pen(c, q1, q2, mu, rho, grads):
             """(value, gamma, eta): gradient = gamma * c', Hessian =
             eta * c' c'^T (src/cilqr_solver.cpp:692-713)."""
             if use_alm:
@@ -465,258 +242,250 @@ def _build_kernel(N: int, M: int, W: int, max_iter: int, n_alphas: int,
                 gam = jnp.where(act, rho * shifted, 0.0)
                 val = jnp.where(act, 0.5 * rho * shifted * shifted, 0.0)
                 return val, gam, gam
-            b = barrier(c, q1, q2)
+            b = q1 * jnp.exp(jnp.minimum(q2 * c, eclip))
+            if not grads:
+                return b, None, None
             return b, q2 * b, q2 * q2 * b
 
-        def front_rear(PX, PY, PH):
-            cph, sph = jnp.cos(PH), jnp.sin(PH)
-            if rear_center:
-                return (PX + wb * cph, PY + wb * sph, PX, PY, cph, sph)
-            return (PX + 0.5 * wb * cph, PY + 0.5 * wb * sph,
-                    PX - 0.5 * wb * cph, PY - 0.5 * wb * sph, cph, sph)
+        def mu_row(c, k):
+            return c * NP + k
 
-        def lateral(PX, PY, RKX, RKY, RKH):
-            dx = PX - RKX
-            dy = PY - RKY
-            d_sign = dy * jnp.cos(RKH) - dx * jnp.sin(RKH)
-            sgn = jnp.where(d_sign < 0, f32(-1.0), f32(1.0))
+        def ego_points(s, trig):
+            px, py = s[0], s[1]
+            cph, sph = trig
+            if rear_center:
+                return (px + wb * cph, py + wb * sph), (px, py)
+            return ((px + 0.5 * wb * cph, py + 0.5 * wb * sph),
+                    (px - 0.5 * wb * cph, py - 0.5 * wb * sph))
+
+        def obstacle(j, k, pts, grads):
+            """(margin, d margin / d point) of the front and rear ego points
+            against obstacle j at step k (src/utils.cpp:395-439)."""
+            row = j * NP + k
+            ox = ld(obs_ref, (_OX * M) * NP + row)
+            oy = ld(obs_ref, (_OY * M) * NP + row)
+            ct = ld(obs_ref, (_OC * M) * NP + row)
+            stt = ld(obs_ref, (_OS * M) * NP + row)
+            out = []
+            for (qx, qy) in pts:
+                ddx = qx - ox
+                ddy = qy - oy
+                xs = ct * ddx + stt * ddy
+                ys = -stt * ddx + ct * ddy
+                c = 1.0 - (xs * xs * inv_a2 + ys * ys * inv_b2)
+                if grads:
+                    gxs = -2.0 * xs * inv_a2
+                    gys = -2.0 * ys * inv_b2
+                    out.append((c, ct * gxs - stt * gys, stt * gxs + ct * gys))
+                else:
+                    out.append((c, None, None))
+            return out
+
+        def bounds(ua, us, s, ref):
+            """The 8 bound constraints in ALM column order
+            (src/cilqr_solver.cpp:622-676) and the lateral geometry."""
+            px, py, pv, _ = s
+            rkx, rky, _, rkc, rks = ref
+            dx = px - rkx
+            dy = py - rky
+            d_sign = dy * rkc - dx * rks
             h = jnp.sqrt(dx * dx + dy * dy)
-            return sgn * h, d_sign, dx, dy, h
+            cur_d = jnp.where(d_sign < 0, f32(-1.0), f32(1.0)) * h
+            cs = [ua - wv[_AMAX], wv[_AMIN] - ua, us - wv[_STL],
+                  -wv[_STL] - us, pv - wv[_VMAX], wv[_VMIN] - pv,
+                  cur_d - up_bound, lo_bound - cur_d]
+            return cs, (d_sign, dx, dy, h)
 
-        def obs_margins(FX, FY, RXc, RYc, with_grads=True):
-            """(margin, grad_x, grad_y) per obstacle x {front, rear} point;
-            grads skipped (None) for value-only cost evaluations."""
-            outs = []
-            for j in range(M):
-                cxj = OX[j * NHG:(j + 1) * NHG]
-                cyj = OY[j * NHG:(j + 1) * NHG]
-                thj = OTH[j * NHG:(j + 1) * NHG]
-                ct, st = jnp.cos(thj), jnp.sin(thj)
-                for (PXp, PYp) in ((FX, FY), (RXc, RYc)):
-                    ddx = PXp - cxj
-                    ddy = PYp - cyj
-                    xs = ct * ddx + st * ddy
-                    ys = -st * ddx + ct * ddy
-                    c = 1.0 - (xs * xs * inv_a2 + ys * ys * inv_b2)
-                    if with_grads:
-                        gxs = -2.0 * xs * inv_a2
-                        gys = -2.0 * ys * inv_b2
-                        gx = ct * gxs - st * gys
-                        gy = st * gxs + ct * gys
-                        outs.append((c, gx, gy))
-                    else:
-                        outs.append((c, None, None))
-            return outs
-
-        def _constraint_slabs(UA, US, PX, PY, PV, PH, RKX, RKY, RKH,
-                              with_grads=True):
-            """Constraint value slabs in ALM column order
-            (src/cilqr_solver.cpp:622-676); also returns lateral geometry.
-            Value-only callers (line-search cost evals) skip the obstacle
-            gradient slabs."""
-            lat = lateral(PX, PY, RKX, RKY, RKH)
-            cur_d = lat[0]
-            cs = [
-                UA - w(_AMAX), w(_AMIN) - UA, US - w(_STL), -w(_STL) - US,
-                PV - w(_VMAX), w(_VMIN) - PV,
-                cur_d - up_bound_s, lo_bound_s - cur_d,
-            ]
-            fr = front_rear(PX, PY, PH)
-            obs = obs_margins(fr[0], fr[1], fr[2], fr[3], with_grads)
-            cs.extend(c for (c, _, _) in obs)
-            return cs, obs, lat, fr
-
-        def _mu_of(mus, i):
-            return mus[i] if use_alm else None
-
-        def total_cost(UA, US, PX, PY, PV, PH, RKX, RKY, RKH,
-                       rho=None, mus=None):
-            dx = PX - RKX
-            dy = PY - RKY
-            dv = PV - ref_velo_s
-            dh = PH - RKH
-            quad = _hsum(
-                jnp.where(quad_mask,
-                          w(_WPOS) * (dx * dx + dy * dy)
-                          + w(_WVEL) * dv * dv + w(_WYAW) * dh * dh, 0.0))
-            quad = quad + _hsum(
-                jnp.where(ctrl_mask,
-                          w(_WACC) * UA * UA + w(_WSTL) * US * US, 0.0))
-            cs, _, _, _ = _constraint_slabs(UA, US, PX, PY, PV, PH,
-                                            RKX, RKY, RKH, with_grads=False)
-            # control-bound columns live on rows r = k-1, state/obstacle
-            # columns on rows k = 1..N
-            jb = _hsum(
-                jnp.where(ctrl_mask,
-                          sum(pen_val(cs[i], sq1, sq2, _mu_of(mus, i), rho)
-                              for i in range(4)), 0.0))
-            jb = jb + _hsum(
-                jnp.where(state_mask,
-                          sum(pen_val(cs[i], sq1, sq2, _mu_of(mus, i), rho)
-                              for i in range(4, 8))
-                          + sum(pen_val(cs[i], oq1, oq2, _mu_of(mus, i), rho)
-                                for i in range(8, C)), 0.0))
-            return quad + jb
-
-        def cost_and_derivs(UA, US, PX, PY, PV, PH, RKX, RKY, RKH,
-                            rho=None, mus=None):
-            """J plus l_x (4 slabs), l_u (2), l_xx (10 sym), l_uu (3 sym),
-            and (ALM) the dual precompute mu_next.
-
-            Mirrors reference src/cilqr_solver.cpp:463-690; l_ux == 0.
-            """
-            dx = PX - RKX
-            dy = PY - RKY
-            dv = PV - ref_velo_s
-            dh = PH - RKH
-
-            lx = [2.0 * w(_WPOS) * dx, 2.0 * w(_WPOS) * dy,
-                  2.0 * w(_WVEL) * dv, 2.0 * w(_WYAW) * dh]
-            lu = [2.0 * w(_WACC) * UA, 2.0 * w(_WSTL) * US]
-            zero = jnp.zeros((NHG, LANES), f32)
-            # l_xx upper-triangle components; the (0,2)/(1,2)/(2,3) couplings
-            # and l_uu (0,1) are structurally zero (no constraint touches
-            # them, reference src/cilqr_solver.cpp:463-690) and are omitted:
-            # the backward pass treats missing keys as exact zeros, which
-            # skips their per-step row extraction entirely
-            lxx = {(0, 0): jnp.full((NHG, LANES), 2.0 * w(_WPOS)),
-                   (1, 1): jnp.full((NHG, LANES), 2.0 * w(_WPOS)),
-                   (2, 2): jnp.full((NHG, LANES), 2.0 * w(_WVEL)),
-                   (3, 3): jnp.full((NHG, LANES), 2.0 * w(_WYAW)),
-                   (0, 1): zero, (0, 3): zero, (1, 3): zero}
-            luu = {(0, 0): jnp.full((NHG, LANES), 2.0 * w(_WACC)),
-                   (1, 1): jnp.full((NHG, LANES), 2.0 * w(_WSTL))}
-
-            sm = state_mask.astype(f32)
-            cm = ctrl_mask.astype(f32)
-            cs, obs, lat, fr = _constraint_slabs(UA, US, PX, PY, PV, PH,
-                                                 RKX, RKY, RKH)
-            q12 = lambda i: (sq1, sq2) if i < 8 else (oq1, oq2)
-            vgh = [pen3(cs[i], *q12(i), _mu_of(mus, i), rho) for i in range(C)]
-
-            # J from the shared values (== total_cost on this trajectory)
-            quad = _hsum(
-                jnp.where(quad_mask,
-                          w(_WPOS) * (dx * dx + dy * dy)
-                          + w(_WVEL) * dv * dv + w(_WYAW) * dh * dh, 0.0)
-            ) + _hsum(
-                jnp.where(ctrl_mask,
-                          w(_WACC) * UA * UA + w(_WSTL) * US * US, 0.0))
-            J = quad + _hsum(
-                jnp.where(ctrl_mask, sum(vgh[i][0] for i in range(4)), 0.0)
-            ) + _hsum(
-                jnp.where(state_mask, sum(vgh[i][0] for i in range(4, C)), 0.0))
-
-            # control bound columns: gradients are +-e0 / +-e1
-            g_au, h_au = vgh[0][1] * cm, vgh[0][2] * cm
-            g_al, h_al = vgh[1][1] * cm, vgh[1][2] * cm
-            g_su, h_su = vgh[2][1] * cm, vgh[2][2] * cm
-            g_sl, h_sl = vgh[3][1] * cm, vgh[3][2] * cm
-            lu[0] = lu[0] + (g_au - g_al)
-            lu[1] = lu[1] + (g_su - g_sl)
-            luu[(0, 0)] = luu[(0, 0)] + (h_au + h_al)
-            luu[(1, 1)] = luu[(1, 1)] + (h_su + h_sl)
-
-            # velocity bounds: gradient +-e2
-            lx[2] = lx[2] + (vgh[4][1] - vgh[5][1]) * sm
-            lxx[(2, 2)] = lxx[(2, 2)] + (vgh[4][2] + vgh[5][2]) * sm
-
-            # road borders: gradient (+-gx, +-gy, 0, 0)
-            cur_d, d_sign, ddx, ddy, h = lat
-            hs = jnp.where(h > 0, h, f32(1.0))
-            flip = jnp.where(d_sign < 0, f32(-1.0), f32(1.0))
-            gpx = jnp.where(h > 0, flip * ddx / hs, 0.0)
-            gpy = jnp.where(h > 0, flip * ddy / hs, 0.0)
-            gsum = (vgh[6][1] - vgh[7][1]) * sm  # lower negates the gradient
-            hsum = (vgh[6][2] + vgh[7][2]) * sm
-            lx[0] = lx[0] + gsum * gpx
-            lx[1] = lx[1] + gsum * gpy
-            lxx[(0, 0)] = lxx[(0, 0)] + hsum * gpx * gpx
-            lxx[(0, 1)] = lxx[(0, 1)] + hsum * gpx * gpy
-            lxx[(1, 1)] = lxx[(1, 1)] + hsum * gpy * gpy
-
-            # obstacle ellipses: chain through front/rear point jacobians
-            cph, sph = fr[4], fr[5]
-            if rear_center:
-                f_yx, f_yy = -wb * sph, wb * cph
-                r_yx = jnp.zeros_like(sph)
-                r_yy = jnp.zeros_like(sph)
-            else:
-                f_yx, f_yy = -0.5 * wb * sph, 0.5 * wb * cph
-                r_yx, r_yy = 0.5 * wb * sph, -0.5 * wb * cph
-            for idx, (c, gx, gy) in enumerate(obs):
-                is_front = (idx % 2) == 0
-                jyx = f_yx if is_front else r_yx
-                jyy = f_yy if is_front else r_yy
-                gcoef = vgh[8 + idx][1] * sm
-                hcoef = vgh[8 + idx][2] * sm
-                g3 = jyx * gx + jyy * gy  # d c / d yaw
-                lx[0] = lx[0] + gcoef * gx
-                lx[1] = lx[1] + gcoef * gy
-                lx[3] = lx[3] + gcoef * g3
-                lxx[(0, 0)] = lxx[(0, 0)] + hcoef * gx * gx
-                lxx[(0, 1)] = lxx[(0, 1)] + hcoef * gx * gy
-                lxx[(0, 3)] = lxx[(0, 3)] + hcoef * gx * g3
-                lxx[(1, 1)] = lxx[(1, 1)] + hcoef * gy * gy
-                lxx[(1, 3)] = lxx[(1, 3)] + hcoef * gy * g3
-                lxx[(3, 3)] = lxx[(3, 3)] + hcoef * g3 * g3
-
-            if use_alm:
-                # dual precompute (src/cilqr_solver.cpp:622-676); valid rows
-                # only, pads keep the old value
-                mu_next = []
-                for i in range(C):
-                    valid = ctrl_mask if i < 4 else state_mask
-                    mn = jnp.clip(mus[i] + rho * cs[i], 0.0, w(_MAX_MU))
-                    mu_next.append(jnp.where(valid, mn, mus[i]))
-                mu_next = tuple(mu_next)
-            else:
-                mu_next = ()
-            return J, lx, lu, lxx, luu, mu_next
-
-        def backward(us_rows, pv_rows, ph_rows, lx, lu, lxx, luu, lamb):
-            """Unrolled sparse Riccati recursion
-            (reference src/cilqr_solver.cpp:383-440).
-
-            Trajectory rows (per-step (1, 128) values) come pre-extracted
-            from the iteration body so line-search trials share them; lxx /
-            luu keys absent from the dicts are structurally zero and their
-            contributions are skipped (exact: adding 0.0 is the identity
-            for every value the recursion produces)."""
-            r = _row
-            # jacobian pieces per step k (0..N-1) use state k, control k
-            # terminal value
-            Vx = [r(lx[i], N) for i in range(4)]
-            zrow = jnp.zeros((G, LANES), f32)
-            Vxx = {(i, j): zrow for i in range(4) for j in range(i, 4)}
-            for (i, j), S in lxx.items():
-                Vxx[(i, j)] = r(S, N)
-            sym = lambda Vm, i, j: Vm[(i, j)] if (i, j) in Vm else Vm[(j, i)]
-            dV1 = jnp.zeros((G, LANES), f32)
-            dV2 = jnp.zeros((G, LANES), f32)
-            fail = jnp.zeros((G, LANES), jnp.bool_)
-            d_rows = [None] * N
-            K_rows = [None] * N
-            for k in range(N - 1, -1, -1):
-                v = pv_rows[k]
-                yaw = ph_rows[k]
-                stl = us_rows[k]
+        def step_cost(k, ua, us, s, trig, idx, rho, grads=False):
+            """Cost of step k (tracking + control energy + penalties,
+            src/cilqr_solver.cpp:199-287); with ``grads`` also its
+            derivatives (src/cilqr_solver.cpp:463-690; l_ux == 0)."""
+            is_c = k < N
+            is_s = k >= 1
+            ref = [gat(win_ref, q * W + idx) for q in range(5)]
+            px, py, pv, ph = s
+            dx = px - ref[0]
+            dy = py - ref[1]
+            dv = pv - ref_velo
+            dh = ph - ref[2]
+            cs, lat = bounds(ua, us, s, ref)
+            mu = ((lambda c: ld(alm_out, mu_row(c, k))) if use_alm
+                  else (lambda c: None))
+            vgh = [pen(cs[c], sq1, sq2, mu(c), rho, grads) for c in range(8)]
+            val = (wv[_WPOS] * (dx * dx + dy * dy) + wv[_WVEL] * dv * dv
+                   + wv[_WYAW] * dh * dh)
+            val = val + jnp.where(
+                is_c, wv[_WACC] * ua * ua + wv[_WSTL] * us * us
+                + (vgh[0][0] + vgh[1][0] + vgh[2][0] + vgh[3][0]), 0.0)
+            sv = vgh[4][0] + vgh[5][0] + vgh[6][0] + vgh[7][0]
+            pts = ego_points(s, trig)
+            if grads:
+                cm = jnp.where(is_c, f32(1.0), f32(0.0))
+                sm = jnp.where(is_s, f32(1.0), f32(0.0))
+                lx = [2.0 * wv[_WPOS] * dx, 2.0 * wv[_WPOS] * dy,
+                      2.0 * wv[_WVEL] * dv, 2.0 * wv[_WYAW] * dh]
+                lu = [2.0 * wv[_WACC] * ua + (vgh[0][1] - vgh[1][1]) * cm,
+                      2.0 * wv[_WSTL] * us + (vgh[2][1] - vgh[3][1]) * cm]
+                luu = [2.0 * wv[_WACC] + (vgh[0][2] + vgh[1][2]) * cm,
+                       2.0 * wv[_WSTL] + (vgh[2][2] + vgh[3][2]) * cm]
+                # l_xx upper triangle; (0,2), (1,2), (2,3) are structurally 0
+                lxx = {(0, 0): zeros + 2.0 * wv[_WPOS],
+                       (1, 1): zeros + 2.0 * wv[_WPOS],
+                       (2, 2): zeros + 2.0 * wv[_WVEL],
+                       (3, 3): zeros + 2.0 * wv[_WYAW],
+                       (0, 1): zeros, (0, 3): zeros, (1, 3): zeros}
+                # velocity bounds: gradient +-e2
+                lx[2] = lx[2] + (vgh[4][1] - vgh[5][1]) * sm
+                lxx[(2, 2)] = lxx[(2, 2)] + (vgh[4][2] + vgh[5][2]) * sm
+                # road borders: gradient (+-gx, +-gy, 0, 0)
+                d_sign, ddx, ddy, h = lat
+                hs = jnp.where(h > 0, h, f32(1.0))
+                flip = jnp.where(d_sign < 0, f32(-1.0), f32(1.0))
+                gpx = jnp.where(h > 0, flip * ddx / hs, 0.0)
+                gpy = jnp.where(h > 0, flip * ddy / hs, 0.0)
+                gsum = (vgh[6][1] - vgh[7][1]) * sm  # lower negates it
+                hsum = (vgh[6][2] + vgh[7][2]) * sm
+                lx[0] = lx[0] + gsum * gpx
+                lx[1] = lx[1] + gsum * gpy
+                lxx[(0, 0)] = lxx[(0, 0)] + hsum * gpx * gpx
+                lxx[(0, 1)] = lxx[(0, 1)] + hsum * gpx * gpy
+                lxx[(1, 1)] = lxx[(1, 1)] + hsum * gpy * gpy
+                cph, sph = trig
+                # d point / d yaw of the front and rear points
                 if rear_center:
-                    cy_, sy_ = jnp.cos(yaw), jnp.sin(yaw)
+                    jac = ((-wb * sph, wb * cph), (zeros, zeros))
+                else:
+                    jac = ((-0.5 * wb * sph, 0.5 * wb * cph),
+                           (0.5 * wb * sph, -0.5 * wb * cph))
+                okeys = [(0, 0), (0, 1), (0, 3), (1, 1), (1, 3), (3, 3)]
+
+            def obs_body(j, carry):
+                sv = carry[0]
+                acc = list(carry[1:])
+                for side, (c, gx, gy) in enumerate(obstacle(j, k, pts, grads)):
+                    col = 8 + 2 * j + side
+                    v, g, e = pen(c, oq1, oq2,
+                                  ld(alm_out, mu_row(col, k)) if use_alm
+                                  else None, rho, grads)
+                    sv = sv + v
+                    if grads:
+                        jyx, jyy = jac[side]
+                        gcoef = g * sm
+                        hcoef = e * sm
+                        g3 = jyx * gx + jyy * gy  # d c / d yaw
+                        lxo = (gx, gy, g3)
+                        acc[0] = acc[0] + gcoef * gx
+                        acc[1] = acc[1] + gcoef * gy
+                        acc[2] = acc[2] + gcoef * g3
+                        for n, (a_, b_) in enumerate(okeys):
+                            va = lxo[{0: 0, 1: 1, 3: 2}[a_]]
+                            vb = lxo[{0: 0, 1: 1, 3: 2}[b_]]
+                            acc[3 + n] = acc[3 + n] + hcoef * va * vb
+                return (sv, *acc)
+
+            carry = (sv,)
+            if grads:
+                carry += (lx[0], lx[1], lx[3]) + tuple(lxx[kk] for kk in okeys)
+            if M:
+                carry = lax.fori_loop(_I0, jnp.int32(M), obs_body, carry)
+            val = val + jnp.where(is_s, carry[0], 0.0)
+            if not grads:
+                return val
+            lx[0], lx[1], lx[3] = carry[1:4]
+            for kk, v in zip(okeys, carry[4:]):
+                lxx[kk] = v
+            return val, lx, lu, lxx, luu
+
+        # -- trajectory storage ------------------------------------------
+        def load_traj(k):
+            kc = jnp.minimum(k, N - 1)
+            ua, us = ld(u_out, kc), ld(u_out, N + kc)
+            s = tuple(ld(x_out, q * NP + k) for q in range(4))
+            idx = ld(scr, IX0 + k).astype(i32)
+            return ua, us, s, idx
+
+        def store_cur(k, kc, ua, us, s, idx, mask):
+            for q in range(4):
+                st(x_out, q * NP + k, s[q], mask)
+            st(scr, IX0 + k, idx.astype(f32), mask)
+
+        def store_trials(k, kc, ua, us, s, idx, mask):
+            m2 = jnp.broadcast_to(mask, (CWP, block))
+            vals = [(0, kc, ua), (1, kc, us)] + [
+                (2 + q, k, s[q]) for q in range(4)] + [(6, k, idx.astype(f32))]
+            for q, r, v in vals:
+                rows = pl.ds(TR0 + (q * NP + r) * CWP, CWP)
+                pltriton.store(scr.at[rows, cols],
+                               jnp.broadcast_to(v, (CWP, block)),
+                               mask=m2 & ((k < N) if q < 2 else True))
+
+        def forward(alphas, rho, mask, store):
+            """One sweep k = 0..N: rolls out, projects and costs the current
+            controls (``alphas`` None; the open-loop initial trajectory) or
+            one trial per row of ``alphas`` (closed-loop u = u_ref +
+            K (x - x_ref) + alpha d, src/cilqr_solver.cpp:442-461), storing
+            each step's rows. Returns the total costs."""
+            shape = (block,) if alphas is None else (CWP, block)
+
+            def step(k, carry):
+                s, J = carry
+                kc = jnp.minimum(k, N - 1)
+                ur = (ld(u_out, kc), ld(u_out, N + kc))
+                trig = heading_trig(s)
+                idx = project(s[0], s[1], k)
+                if alphas is None:
+                    ua, us = ur
+                else:
+                    xr = [ld(x_out, q * NP + k) for q in range(4)]
+                    g = [ld(scr, KG0 + q * N + kc) for q in range(10)]
+                    e = [s[q] - xr[q] for q in range(4)]
+                    ua = (ur[0] + g[0] * e[0] + g[1] * e[1] + g[2] * e[2]
+                          + g[3] * e[3] + alphas * g[8])
+                    us = (ur[1] + g[4] * e[0] + g[5] * e[1] + g[6] * e[2]
+                          + g[7] * e[3] + alphas * g[9])
+                J = J + step_cost(k, ua, us, s, trig, idx, rho)
+                store(k, kc, ua, us, s, idx, mask)
+                return propagate(s, trig, ua, us), J
+
+            init = (tuple(jnp.broadcast_to(v, shape) for v in x0),
+                    jnp.zeros(shape, f32))
+            return lax.fori_loop(_I0, jnp.int32(NP), step, init)[1]
+
+        def backward(lamb, rho):
+            """Sparse Riccati recursion (src/cilqr_solver.cpp:383-440) with
+            the step-k derivatives recomputed from the stored trajectory;
+            writes K and d rows, returns (dV1, dV2, fail)."""
+            keys = [(a, b) for a in range(4) for b in range(a, 4)]
+            ua, us, s, idx = load_traj(N)
+            _, lxN, _, lxxN, _ = step_cost(N, ua, us, s, heading_trig(s), idx,
+                                           rho, grads=True)
+            Vx0 = tuple(lxN)
+            Vxx0 = tuple(lxxN.get(kk, zeros) for kk in keys)
+
+            def step(kk, carry):
+                Vx, Vxx_t, dV1, dV2, fail = carry
+                k = N - 1 - kk
+                Vxx = dict(zip(keys, Vxx_t))
+                ua, us, s, idx = load_traj(k)
+                trig = heading_trig(s)
+                _, lx, lu, lxx, luu = step_cost(k, ua, us, s, trig, idx, rho,
+                                                grads=True)
+                v, stl = s[2], us
+                cy_, sy_ = trig
+                if rear_center:
                     a02 = cy_ * dt
                     a03 = -v * sy_ * dt
                     a12 = sy_ * dt
                     a13 = v * cy_ * dt
                     a32 = jnp.tan(stl) * dt / wb
-                    b01 = jnp.zeros_like(v)
-                    b11 = jnp.zeros_like(v)
+                    b01 = zeros
+                    b11 = zeros
                     cs2 = jnp.cos(stl)
                     b31 = (v * dt / wb) / (cs2 * cs2)
                 else:
-                    sinb, cosb = _beta_jac_trig(stl)  # quirk beta (see def)
+                    sinb, cosb = _beta_jac_trig(stl)  # quirk beta
                     t2 = jnp.tan(stl) ** 2
                     dbds = 0.5 * (1.0 + t2) / (1.0 + 0.25 * t2)
-                    cy_, sy_ = jnp.cos(yaw), jnp.sin(yaw)
                     cby = cosb * cy_ - sinb * sy_
                     sby = sinb * cy_ + cosb * sy_
                     a02 = cby * dt
@@ -728,788 +497,280 @@ def _build_kernel(N: int, M: int, W: int, max_iter: int, n_alphas: int,
                     b11 = v * cby * dt * dbds
                     b31 = (2.0 * v * dt / wb) * cosb * dbds
 
-                V = lambda i, j: sym(Vxx, i, j)
-                # M1 = Vxx @ A (A = I + sparse); columns 2,3 modified
+                V = lambda a, b: Vxx[(min(a, b), max(a, b))]
+                # M1 = Vxx @ A (A = I + sparse); columns 2, 3 modified
                 M1 = {}
-                for i in range(4):
-                    M1[(i, 0)] = V(i, 0)
-                    M1[(i, 1)] = V(i, 1)
-                    M1[(i, 2)] = a02 * V(i, 0) + a12 * V(i, 1) + V(i, 2) + a32 * V(i, 3)
-                    M1[(i, 3)] = a03 * V(i, 0) + a13 * V(i, 1) + V(i, 3)
+                for a in range(4):
+                    M1[(a, 0)] = V(a, 0)
+                    M1[(a, 1)] = V(a, 1)
+                    M1[(a, 2)] = (a02 * V(a, 0) + a12 * V(a, 1) + V(a, 2)
+                                  + a32 * V(a, 3))
+                    M1[(a, 3)] = a03 * V(a, 0) + a13 * V(a, 1) + V(a, 3)
                 # Qxx = lxx + A^T M1
                 Qxx = {}
-                for j in range(4):
-                    Qxx[(0, j)] = M1[(0, j)]
-                    Qxx[(1, j)] = M1[(1, j)]
-                    Qxx[(2, j)] = a02 * M1[(0, j)] + a12 * M1[(1, j)] + M1[(2, j)] + a32 * M1[(3, j)]
-                    Qxx[(3, j)] = a03 * M1[(0, j)] + a13 * M1[(1, j)] + M1[(3, j)]
-                lxx_rows = {key: r(S, k) for key, S in lxx.items()}
-                for i in range(4):
-                    for j in range(4):
-                        key = (min(i, j), max(i, j))
-                        if key in lxx_rows:
-                            Qxx[(i, j)] = Qxx[(i, j)] + lxx_rows[key]
-
-                Qx = [r(lx[0], k) + Vx[0],
-                      r(lx[1], k) + Vx[1],
-                      r(lx[2], k) + a02 * Vx[0] + a12 * Vx[1] + Vx[2] + a32 * Vx[3],
-                      r(lx[3], k) + a03 * Vx[0] + a13 * Vx[1] + Vx[3]]
-                Qu = [r(lu[0], k) + dt * Vx[2],
-                      r(lu[1], k) + b01 * Vx[0] + b11 * Vx[1] + b31 * Vx[3]]
-                # M2 = Vxx @ B
+                for b in range(4):
+                    Qxx[(0, b)] = M1[(0, b)]
+                    Qxx[(1, b)] = M1[(1, b)]
+                    Qxx[(2, b)] = (a02 * M1[(0, b)] + a12 * M1[(1, b)]
+                                   + M1[(2, b)] + a32 * M1[(3, b)])
+                    Qxx[(3, b)] = (a03 * M1[(0, b)] + a13 * M1[(1, b)]
+                                   + M1[(3, b)])
+                for key, val in lxx.items():
+                    Qxx[key] = Qxx[key] + val
+                Qx = [lx[0] + Vx[0], lx[1] + Vx[1],
+                      lx[2] + a02 * Vx[0] + a12 * Vx[1] + Vx[2] + a32 * Vx[3],
+                      lx[3] + a03 * Vx[0] + a13 * Vx[1] + Vx[3]]
+                Qu = [lu[0] + dt * Vx[2],
+                      lu[1] + b01 * Vx[0] + b11 * Vx[1] + b31 * Vx[3]]
                 M2 = {}
-                for i in range(4):
-                    M2[(i, 0)] = dt * V(i, 2)
-                    M2[(i, 1)] = b01 * V(i, 0) + b11 * V(i, 1) + b31 * V(i, 3)
-                Quu00 = r(luu[(0, 0)], k) + dt * M2[(2, 0)] + lamb
+                for a in range(4):
+                    M2[(a, 0)] = dt * V(a, 2)
+                    M2[(a, 1)] = b01 * V(a, 0) + b11 * V(a, 1) + b31 * V(a, 3)
+                Quu00 = luu[0] + dt * M2[(2, 0)] + lamb
                 Quu01 = dt * M2[(2, 1)]  # l_uu (0,1) structurally zero
-                Quu11 = r(luu[(1, 1)], k) + b01 * M2[(0, 1)] + b11 * M2[(1, 1)] + b31 * M2[(3, 1)] + lamb
-                Qux = [[dt * M1[(2, j)] for j in range(4)],
-                       [b01 * M1[(0, j)] + b11 * M1[(1, j)] + b31 * M1[(3, j)]
-                        for j in range(4)]]
+                Quu11 = (luu[1] + b01 * M2[(0, 1)] + b11 * M2[(1, 1)]
+                         + b31 * M2[(3, 1)] + lamb)
+                Qux = [[dt * M1[(2, b)] for b in range(4)],
+                       [b01 * M1[(0, b)] + b11 * M1[(1, b)] + b31 * M1[(3, b)]
+                        for b in range(4)]]
 
                 det = Quu00 * Quu11 - Quu01 * Quu01
                 pd = (Quu00 > 0) & (det > 0)
-                fail = fail | ~pd
                 dets = jnp.where(pd, det, f32(1.0))
                 i00 = Quu11 / dets
                 i01 = -Quu01 / dets
                 i11 = Quu00 / dets
                 d0 = -(i00 * Qu[0] + i01 * Qu[1])
                 d1 = -(i01 * Qu[0] + i11 * Qu[1])
-                Kr = [[-(i00 * Qux[0][j] + i01 * Qux[1][j]) for j in range(4)],
-                      [-(i01 * Qux[0][j] + i11 * Qux[1][j]) for j in range(4)]]
-                d_rows[k] = (d0, d1)
-                K_rows[k] = Kr
+                Kr = [[-(i00 * Qux[0][b] + i01 * Qux[1][b]) for b in range(4)],
+                      [-(i01 * Qux[0][b] + i11 * Qux[1][b]) for b in range(4)]]
+                for q, g in enumerate(Kr[0] + Kr[1] + [d0, d1]):
+                    st(scr, KG0 + q * N + k, g)
 
-                # V updates (reference src/cilqr_solver.cpp:427-432)
+                # value-function update (src/cilqr_solver.cpp:427-432)
                 Qud = [Quu00 * d0 + Quu01 * d1, Quu01 * d0 + Quu11 * d1]
-                newVx = []
-                for j in range(4):
-                    newVx.append(Qx[j]
-                                 + Kr[0][j] * (Qud[0] + Qu[0])
-                                 + Kr[1][j] * (Qud[1] + Qu[1])
-                                 + Qux[0][j] * d0 + Qux[1][j] * d1)
-                Vx = newVx
-                newVxx = {}
-                for i in range(4):
-                    for j in range(i, 4):
-                        KQuuK = (Kr[0][i] * (Quu00 * Kr[0][j] + Quu01 * Kr[1][j])
-                                 + Kr[1][i] * (Quu01 * Kr[0][j] + Quu11 * Kr[1][j]))
-                        KQux = Kr[0][i] * Qux[0][j] + Kr[1][i] * Qux[1][j]
-                        QuxK = Qux[0][i] * Kr[0][j] + Qux[1][i] * Kr[1][j]
-                        newVxx[(i, j)] = Qxx[(i, j)] + KQuuK + KQux + QuxK
-                Vxx = newVxx
-                dV1 = dV1 + 0.5 * (d0 * Qud[0] + d1 * Qud[1])
-                dV2 = dV2 + d0 * Qu[0] + d1 * Qu[1]
+                nVx = tuple(Qx[b] + Kr[0][b] * (Qud[0] + Qu[0])
+                            + Kr[1][b] * (Qud[1] + Qu[1])
+                            + Qux[0][b] * d0 + Qux[1][b] * d1
+                            for b in range(4))
+                nVxx = []
+                for (a, b) in keys:
+                    KQuuK = (Kr[0][a] * (Quu00 * Kr[0][b] + Quu01 * Kr[1][b])
+                             + Kr[1][a] * (Quu01 * Kr[0][b] + Quu11 * Kr[1][b]))
+                    KQux = Kr[0][a] * Qux[0][b] + Kr[1][a] * Qux[1][b]
+                    QuxK = Qux[0][a] * Kr[0][b] + Qux[1][a] * Kr[1][b]
+                    nVxx.append(Qxx[(a, b)] + KQuuK + KQux + QuxK)
+                return (nVx, tuple(nVxx),
+                        dV1 + 0.5 * (d0 * Qud[0] + d1 * Qud[1]),
+                        dV2 + d0 * Qu[0] + d1 * Qu[1], fail | ~pd)
 
-            # gains stay as per-step (G, 128) row lists: forward consumes
-            # them by index, so packing them into slabs (and re-extracting
-            # with masked reduces) would only add parasitic VPU work
-            return d_rows, K_rows, dV1, dV2, fail
+            _, _, dV1, dV2, fail = lax.fori_loop(
+                _I0, jnp.int32(N), step, (Vx0, Vxx0, zeros, zeros, zeros < 0))
+            return dV1, dV2, fail
 
-        def forward(ua_rows, us_rows, px_rows, py_rows, pv_rows, ph_rows,
-                    d_rows, K_rows, alpha):
-            """Closed-loop trial rollout (reference src/cilqr_solver.cpp:442-461).
+        def any_(m):
+            return jnp.max(jnp.where(m, 1, 0)) > 0
 
-            The reference trajectory arrives as per-step (G, 128) rows,
-            extracted once per solver iteration and shared by every
-            line-search trial (extraction is a masked slab reduce -- see
-            ``_row`` -- so hoisting it out of the trial loop matters)."""
-            uas, uss = [], []
-            cx, cy, cv, ch = x0
-            nxs, nys, nvs, nhs = [cx], [cy], [cv], [ch]
-            for k in range(N):
-                e0 = cx - px_rows[k]
-                e1 = cy - py_rows[k]
-                e2 = cv - pv_rows[k]
-                e3 = ch - ph_rows[k]
-                Kr = K_rows[k]
-                na = (ua_rows[k] + Kr[0][0] * e0 + Kr[0][1] * e1
-                      + Kr[0][2] * e2 + Kr[0][3] * e3
-                      + alpha * d_rows[k][0])
-                ns = (us_rows[k] + Kr[1][0] * e0 + Kr[1][1] * e1
-                      + Kr[1][2] * e2 + Kr[1][3] * e3
-                      + alpha * d_rows[k][1])
-                uas.append(na)
-                uss.append(ns)
-                cx, cy, cv, ch = propagate(cx, cy, cv, ch, na, ns)
-                nxs.append(cx)
-                nys.append(cy)
-                nvs.append(cv)
-                nhs.append(ch)
-            return (_stack(uas), _stack(uss), _stack(nxs), _stack(nys),
-                    _stack(nvs), _stack(nhs), nxs, nys)
+        jj = lax.broadcasted_iota(i32, (CWP, 1), 0)
 
-        if ls_chunk:
-            CW = ls_chunk
-            n_chunks = -(-n_alphas // CW)
-            ci = lax.broadcasted_iota(jnp.int32, (CW, LANES), 0)
-            x0c = [_tile_rows(p, CW) for p in x0]
+        def line_search(active, bp_fail, cur_J, dV1, dV2, rho):
+            def cond(c):
+                return (c[0] < n_chunks) & any_(~c[1])
 
-            def _sub(p, a):
-                """(CW, 128) packed trial rows -> trial a's (1, 128) row
-                (masked reduce, born replicated -- the same layout class as
-                the serial forward()'s outputs)."""
-                return jnp.sum(jnp.where(ci == a, p, 0.0), axis=0,
-                               keepdims=True)
-
-            def forward_packed(ua_rows, us_rows, px_rows, py_rows, pv_rows,
-                               ph_rows, d_rows, K_rows, AL):
-                """One chunk's CW trial rollouts as ONE (CW, 128) chain.
-
-                Sublane a carries the alpha = AL[a] trial. Every operation
-                is elementwise and AL holds exact powers of two, so sublane
-                a is bitwise-identical to forward() at that scalar alpha;
-                the N-step dependent chain (the line search's latency
-                bottleneck) is paid once per chunk instead of once per
-                alpha. Semantics: reference src/cilqr_solver.cpp:442-461.
-                """
-                uas, uss = [], []
-                cx, cy, cv, ch = x0c
-                nxs, nys, nvs, nhs = [cx], [cy], [cv], [ch]
-                for k in range(N):
-                    e0 = cx - px_rows[k]
-                    e1 = cy - py_rows[k]
-                    e2 = cv - pv_rows[k]
-                    e3 = ch - ph_rows[k]
-                    Kr = K_rows[k]
-                    na = (ua_rows[k] + Kr[0][0] * e0 + Kr[0][1] * e1
-                          + Kr[0][2] * e2 + Kr[0][3] * e3
-                          + AL * d_rows[k][0])
-                    ns = (us_rows[k] + Kr[1][0] * e0 + Kr[1][1] * e1
-                          + Kr[1][2] * e2 + Kr[1][3] * e3
-                          + AL * d_rows[k][1])
-                    uas.append(na)
-                    uss.append(ns)
-                    cx, cy, cv, ch = propagate(cx, cy, cv, ch, na, ns)
-                    nxs.append(cx)
-                    nys.append(cy)
-                    nvs.append(cv)
-                    nhs.append(ch)
-                return uas, uss, nxs, nys, nvs, nhs
-
-        # -- solve --------------------------------------------------------
-        # while_loop carries must not be constant-folded values: Mosaic pins
-        # the carry layout to the (fully replicated) constant layout and
-        # cannot relayout the body's lane-varying outputs back into it.
-        # Anchor every carried init to lane-varying data instead.
-        lane0 = x0[0] * 0.0  # (G, 128) zeros, lane-offset layout
-        # warm-start initial controls (zeros for a cold start); input reads
-        # have materialized layouts, so they are safe as carried values
-        UA0 = uinit_ref[0:NHG, :]
-        US0 = uinit_ref[NHG:2 * NHG, :]
-        PX0, PY0, PV0, PH0, pxr0, pyr0 = rollout(UA0, US0)
-        RKX0, RKY0, RKH0 = project(pxr0, pyr0)
-
-        def iter_cond(st):
-            it = st[0]
-            active_f = st[1]
-            return (it < max_iter) & (jnp.max(active_f) > 0.5)
-
-        def iter_body(st):
-            if _PROBE:
-                (it, active_f, lamb, status, conv_ff, ovf_ff, iters,
-                 UA, US, PX, PY, PV, PH, RKX, RKY, RKH, rho, mus,
-                 probe_acc) = st
-            else:
-                (it, active_f, lamb, status, conv_ff, ovf_ff, iters,
-                 UA, US, PX, PY, PV, PH, RKX, RKY, RKH, rho, mus) = st
-                probe_acc = None
-            # carried masks travel as f32 rows (Mosaic cannot yield i1
-            # vectors from scf loops); rehydrate to bool locally
-            active = active_f > 0.5
-            conv_f = conv_ff > 0.5
-            ovf_f = ovf_ff > 0.5
-            ori_J, lx, lu, lxx, luu, mu_next = cost_and_derivs(
-                UA, US, PX, PY, PV, PH, RKX, RKY, RKH, rho, mus)
-            # one row-extraction pass shared by the backward recursion and
-            # every line-search trial rollout
-            ua_rows = [_row(UA, k) for k in range(N)]
-            us_rows = [_row(US, k) for k in range(N)]
-            px_rows = [_row(PX, k) for k in range(N)]
-            py_rows = [_row(PY, k) for k in range(N)]
-            pv_rows = [_row(PV, k) for k in range(N)]
-            ph_rows = [_row(PH, k) for k in range(N)]
-            d_rows, K_rows, dV1, dV2, bp_fail = backward(
-                us_rows, pv_rows, ph_rows, lx, lu, lxx, luu, lamb)
-            probe_add = None
-            if _PROBE == "2rows":
-                r2 = [_row(S + lane0, k) for S in (UA, US, PX, PY, PV, PH)
-                      for k in range(N)]
-                probe_add = sum(r2) * 1e-30
-            elif _PROBE == "2back":
-                b2 = backward(us_rows, pv_rows, ph_rows, lx, lu, lxx, luu,
-                              lamb + lane0)
-                probe_add = (b2[2] + b2[3]) * 1e-30
-            elif _PROBE == "2derivs":
-                c2 = cost_and_derivs(UA + lane0, US, PX, PY, PV, PH,
-                                     RKX, RKY, RKH, rho, mus)
-                probe_add = (c2[0] + sum(
-                    jnp.sum(s * 1e-30, axis=0, keepdims=True)
-                    for s in c2[1] + c2[2])) * 1e-30
-
-            # line search: early-exit while over trials
-            def ls_cond(ls):
-                t = ls[0]
-                ls_done_f = ls[1]
-                return (t < n_alphas) & (jnp.min(ls_done_f) < 0.5)
-
-            def ls_body(ls):
-                (t, ls_done_f, acc_f2, convf_f2, small_f2, j_hit,
-                 BUA, BUS, BPX, BPY, BPV, BPH, BRX, BRY, BRH) = ls
-                ls_done = ls_done_f > 0.5
-                acc = acc_f2 > 0.5
-                convf = convf_f2 > 0.5
-                small = small_f2 > 0.5
-                alpha = jnp.exp2(-t.astype(f32))
-                NUA, NUS, NPX, NPY, NPV, NPH, npxr, npyr = forward(
-                    ua_rows, us_rows, px_rows, py_rows, pv_rows, ph_rows,
-                    d_rows, K_rows, alpha)
-                if _PROBE == "noproj":  # timing probe: results are WRONG
-                    TRX, TRY, TRH = RKX, RKY, RKH
-                else:
-                    TRX, TRY, TRH = project(npxr, npyr)
-                nJ = total_cost(NUA, NUS, NPX, NPY, NPV, NPH, TRX, TRY, TRH,
-                                rho, mus)
-                # marginal-cost probes: evaluate a component a SECOND time on
-                # a +0.0-perturbed input (lane0 is runtime zeros, so CSE
-                # cannot merge the two calls) and fold the result at 1e-30
-                # into the carried accumulator so it cannot be DCE'd.
-                # Results stay exact; only timing changes.
-                if _PROBE == "2cost":
-                    nJ2 = total_cost(NUA + lane0, NUS, NPX, NPY, NPV, NPH,
-                                     TRX, TRY, TRH, rho, mus)
-                    j_hit = j_hit + nJ2 * 1e-30
-                elif _PROBE == "2fwd":
-                    f2 = forward(ua_rows, us_rows, px_rows, py_rows, pv_rows,
-                                 ph_rows, d_rows, K_rows, alpha * (1.0 + lane0))
-                    j_hit = j_hit + f2[6][N] * 1e-30
-                elif _PROBE == "2proj":
-                    T2 = project([p + lane0 for p in npxr], npyr)
-                    j_hit = j_hit + jnp.sum(T2[0] * 1e-30, axis=0,
-                                            keepdims=True)
-                decay = ori_J - nJ
-                is_first = t == 0
-                conv_now = is_first & (jnp.abs(decay) < w(_CONV)) & ~ls_done
+            def body(c):
+                t, ls_done, acc, convf, small, slot_i, nJ = c
+                te = t * cw + jj  # (CWP, 1) alpha indices of this sweep
+                alpha = _pow2_neg(te)
+                costs = forward(alpha, rho, ~ls_done, store_trials)
+                decay = cur_J - costs
+                is_first = te == 0
+                # the convergence check precedes acceptance at alpha == 1
+                # (src/cilqr_solver.cpp:358-365)
+                conv_s = is_first & (jnp.abs(decay) < wv[_CONV])
                 approx = -(alpha * alpha * dV1 + alpha * dV2)
                 ratio = jnp.where(approx != 0, decay / approx, f32(jnp.inf))
-                acc_now = (~conv_now) & ~ls_done & (decay > 0) & (
-                    (approx < 0) | (ratio > w(_ACCEPT)))
-                take = acc_now if G == 1 else _tile_rows(acc_now, NH)
-                BUA = jnp.where(take, NUA, BUA)
-                BUS = jnp.where(take, NUS, BUS)
-                BPX = jnp.where(take, NPX, BPX)
-                BPY = jnp.where(take, NPY, BPY)
-                BPV = jnp.where(take, NPV, BPV)
-                BPH = jnp.where(take, NPH, BPH)
-                BRX = jnp.where(take, TRX, BRX)
-                BRY = jnp.where(take, TRY, BRY)
-                BRH = jnp.where(take, TRH, BRH)
-                small = small | (acc_now & ~is_first)
-                return (t + 1, (ls_done | conv_now | acc_now).astype(f32),
-                        (acc | acc_now).astype(f32),
-                        (convf | conv_now).astype(f32), small.astype(f32),
-                        j_hit,
-                        BUA, BUS, BPX, BPY, BPV, BPH, BRX, BRY, BRH)
+                acc_s = (decay > 0) & ((approx < 0) | (ratio > wv[_ACCEPT]))
+                # inert rows: beyond the chunk width or the alpha schedule
+                hit = (conv_s | acc_s) & (jj < cw) & (te < n_alphas)
+                first = jnp.min(jnp.where(hit, jj, CWP), axis=0)
+                sel = jj == first
+                found = (first < CWP) & ~ls_done
+                conv_now = found & any_axis0(sel & conv_s)
+                acc_now = found & ~conv_now
+                slot_i = jnp.where(acc_now, first, slot_i)
+                nJ = jnp.where(acc_now,
+                               jnp.sum(jnp.where(sel, costs, 0.0), axis=0), nJ)
+                small = small | (acc_now & (t * cw + first != 0))
+                return (t + 1, ls_done | found, acc | acc_now,
+                        convf | conv_now, small, slot_i, nJ)
 
-            # chunked line search (see _build_kernel docstring): the while
-            # loop advances one CW-alpha chunk at a time; within a chunk the
-            # CW trial rollouts are one packed sublane chain and the
-            # per-alpha projection/cost/accept updates replay the serial
-            # loop's code (and exact fp behavior) on extracted rows.
-            def ls_cond_p(ls):
-                t = ls[0]
-                ls_done_f = ls[1]
-                return (t < n_chunks) & (jnp.min(ls_done_f) < 0.5)
+            false = zeros < 0
+            init = (jnp.int32(0), bp_fail | ~active, false, false, false,
+                    jnp.zeros((block,), i32), cur_J)
+            return lax.while_loop(cond, body, init)[2:]
 
-            def ls_body_p(ls):
-                (t, ls_done_f, acc_f2, convf_f2, small_f2, j_hit,
-                 BUA, BUS, BPX, BPY, BPV, BPH, BRX, BRY, BRH) = ls
-                ls_done = ls_done_f > 0.5
-                acc = acc_f2 > 0.5
-                convf = convf_f2 > 0.5
-                small = small_f2 > 0.5
-                t0 = t * CW
-                AL = jnp.exp2(-(t0 + ci).astype(f32))
-                pua, pus, pxs, pys, pvs, phs = forward_packed(
-                    ua_rows, us_rows, px_rows, py_rows, pv_rows, ph_rows,
-                    d_rows, K_rows, AL)
-                for a in range(CW):
-                    te = t0 + a
-                    alpha = jnp.exp2(-te.astype(f32))
-                    nua_r = [_sub(p, a) for p in pua]
-                    nus_r = [_sub(p, a) for p in pus]
-                    npxr = [_sub(p, a) for p in pxs]
-                    npyr = [_sub(p, a) for p in pys]
-                    npvr = [_sub(p, a) for p in pvs]
-                    nphr = [_sub(p, a) for p in phs]
-                    NUA, NUS = _stack(nua_r), _stack(nus_r)
-                    NPX, NPY = _stack(npxr), _stack(npyr)
-                    NPV, NPH = _stack(npvr), _stack(nphr)
-                    TRX, TRY, TRH = project(npxr, npyr)
-                    nJ = total_cost(NUA, NUS, NPX, NPY, NPV, NPH,
-                                    TRX, TRY, TRH, rho, mus)
-                    decay = ori_J - nJ
-                    is_first = te == 0
-                    conv_now = (is_first & (jnp.abs(decay) < w(_CONV))
-                                & ~ls_done)
-                    approx = -(alpha * alpha * dV1 + alpha * dV2)
-                    ratio = jnp.where(approx != 0, decay / approx,
-                                      f32(jnp.inf))
-                    # (te < n_alphas) masks the dummy trailing alphas of the
-                    # last chunk (n_alphas is not a CW multiple)
-                    acc_now = ((te < n_alphas) & (~conv_now) & ~ls_done
-                               & (decay > 0)
-                               & ((approx < 0) | (ratio > w(_ACCEPT))))
-                    BUA = jnp.where(acc_now, NUA, BUA)
-                    BUS = jnp.where(acc_now, NUS, BUS)
-                    BPX = jnp.where(acc_now, NPX, BPX)
-                    BPY = jnp.where(acc_now, NPY, BPY)
-                    BPV = jnp.where(acc_now, NPV, BPV)
-                    BPH = jnp.where(acc_now, NPH, BPH)
-                    BRX = jnp.where(acc_now, TRX, BRX)
-                    BRY = jnp.where(acc_now, TRY, BRY)
-                    BRH = jnp.where(acc_now, TRH, BRH)
-                    small = small | (acc_now & ~is_first)
-                    ls_done = ls_done | conv_now | acc_now
-                    acc = acc | acc_now
-                    convf = convf | conv_now
-                return (t + 1, ls_done.astype(f32), acc.astype(f32),
-                        convf.astype(f32), small.astype(f32), j_hit,
-                        BUA, BUS, BPX, BPY, BPV, BPH, BRX, BRY, BRH)
+        def any_axis0(m):
+            return jnp.max(jnp.where(m, 1, 0), axis=0) > 0
 
-            fz = lane0  # lane-anchored 0.0 row (False as f32)
-            ls0 = (jnp.asarray(0, jnp.int32),
-                   (bp_fail | ~active).astype(f32), fz, fz, fz, fz,
-                   UA, US, PX, PY, PV, PH, RKX, RKY, RKH)
-            (_, _, ls_acc_f, ls_conv_f, ls_small_f, ls_probe,
-             BUA, BUS, BPX, BPY, BPV, BPH, BRX, BRY, BRH) = lax.while_loop(
-                ls_cond_p if ls_chunk else ls_cond,
-                ls_body_p if ls_chunk else ls_body, ls0)
-            if _PROBE:
-                probe_acc = probe_acc + ls_probe
-                if probe_add is not None:
-                    probe_acc = probe_acc + probe_add
-            ls_acc = ls_acc_f > 0.5
-            ls_conv = ls_conv_f > 0.5
-            ls_small = ls_small_f > 0.5
+        def adopt(accepted, slot_i):
+            """Copy each accepted lane's winning trial over the current
+            trajectory."""
+            dests = [(u_out, 0), (u_out, N)] + [
+                (x_out, q * NP) for q in range(4)] + [(scr, IX0)]
 
-            accepted = active & ~bp_fail & ls_acc
-            converged_now = active & ~bp_fail & ls_conv
-            exhausted = active & ~bp_fail & ~ls_acc & ~ls_conv
+            def step(k, carry):
+                kc = jnp.minimum(k, N - 1)
+                for q, (ref, base) in enumerate(dests):
+                    r = kc if q < 2 else k
+                    v = gat(scr, TR0 + (q * NP + r) * CWP + slot_i)
+                    st(ref, base + r, v, accepted)
+                return carry
+            lax.fori_loop(_I0, jnp.int32(NP), step, 0)
+
+        def alm_update(exhausted, rho, rho2):
+            """Dual update on line-search exhaustion (src/cilqr_solver.cpp:
+            377-379): mu <- clip(mu + rho c, 0, max_mu) on the rows each
+            constraint is evaluated at, then the trajectory's cost under
+            the new (mu, rho2)."""
+            def upd(col, k, c, valid):
+                mu = ld(alm_out, mu_row(col, k))
+                mn = jnp.where(valid,
+                               jnp.clip(mu + rho * c, 0.0, wv[_MAX_MU]), mu)
+                st(alm_out, mu_row(col, k), mn, exhausted)
+
+            def step(k, J):
+                ua, us, s, idx = load_traj(k)
+                trig = heading_trig(s)
+                ref = [gat(win_ref, q * W + idx) for q in range(5)]
+                cs, _ = bounds(ua, us, s, ref)
+                for col in range(8):
+                    upd(col, k, cs[col], (k < N) if col < 4 else (k >= 1))
+                pts = ego_points(s, trig)
+
+                def obs_body(j, carry):
+                    for side, (c, _, _) in enumerate(obstacle(j, k, pts,
+                                                              False)):
+                        upd(8 + 2 * j + side, k, c, k >= 1)
+                    return carry
+                if M:
+                    lax.fori_loop(_I0, jnp.int32(M), obs_body, 0)
+                return J + step_cost(k, ua, us, s, trig, idx, rho2)
+            return lax.fori_loop(_I0, jnp.int32(NP), step, zeros)
+
+        # -- solve ------------------------------------------------------------
+        def copy(src, dst, n):
+            def body(r, carry):
+                st(dst, r, ld(src, r))
+                return carry
+            lax.fori_loop(_I0, jnp.int32(n), body, 0)
+
+        copy(uinit_ref, u_out, 2 * N)
+        if use_alm:
+            copy(alm_in, alm_out, (8 + 2 * M) * NP + 1)
+            rho0 = ld(alm_in, (8 + 2 * M) * NP)
+        else:
+            rho0 = zeros + wv[_RHO_INIT]
+        J0 = forward(None, rho0, zeros == zeros, store_cur)
+
+        conv0 = ld(stats_ref, 2) > 0.5
+        ovf0 = ld(stats_ref, 3) > 0.5
+        # rows exit only via converged/overflow, so active == ~(conv|ovf)
+        st0 = (wv[_IT0].astype(i32), ~(conv0 | ovf0), ld(stats_ref, 5),
+               ld(stats_ref, 1).astype(i32), conv0, ovf0,
+               ld(stats_ref, 0).astype(i32), rho0, J0)
+        max_it = wv[_MAXIT].astype(i32)
+
+        def iter_cond(c):
+            return (c[0] < max_it) & any_(c[1])
+
+        def iter_body(c):
+            it, active, lamb, status, conv_f, ovf_f, iters, rho, cur_J = c
+            dV1, dV2, bp_fail = backward(lamb, rho)
+            ls_acc, ls_conv, ls_small, slot_i, nJ = line_search(
+                active, bp_fail, cur_J, dV1, dV2, rho)
+            ok = active & ~bp_fail
+            accepted = ok & ls_acc
+            converged_now = ok & ls_conv
+            exhausted = ok & ~ls_acc & ~ls_conv
             bp_failed = active & bp_fail
-
-            acc_s = accepted if G == 1 else _tile_rows(accepted, NH)
-            sel = lambda n, o: jnp.where(acc_s, n, o)
-            UA2, US2 = sel(BUA, UA), sel(BUS, US)
-            PX2, PY2, PV2, PH2 = sel(BPX, PX), sel(BPY, PY), sel(BPV, PV), sel(BPH, PH)
-            RKX2, RKY2, RKH2 = sel(BRX, RKX), sel(BRY, RKY), sel(BRH, RKH)
+            adopt(accepted, slot_i)
+            cur_J = jnp.where(accepted, nJ, cur_J)
 
             status2 = jnp.where(
-                bp_failed, f32(SolveStatus.BACKWARD_PASS_FAIL),
-                jnp.where(converged_now, f32(SolveStatus.CONVERGED),
-                          jnp.where(exhausted, f32(SolveStatus.FORWARD_PASS_FAIL),
+                bp_failed, SolveStatus.BACKWARD_PASS_FAIL,
+                jnp.where(converged_now, SolveStatus.CONVERGED,
+                          jnp.where(exhausted, SolveStatus.FORWARD_PASS_FAIL,
                                     jnp.where(ls_small & accepted,
-                                              f32(SolveStatus.FORWARD_PASS_SMALL_STEP),
-                                              f32(SolveStatus.RUNNING)))))
-            status2 = jnp.where(active, status2, status)
+                                              SolveStatus.FORWARD_PASS_SMALL_STEP,
+                                              SolveStatus.RUNNING))))
+            status2 = jnp.where(active, status2, status).astype(i32)
             is_fail = bp_failed | exhausted
             lamb2 = jnp.where(
-                is_fail, jnp.maximum(w(_LAMP), lamb * w(_LAMP)),
-                jnp.where(active & (status2 == f32(SolveStatus.RUNNING)),
-                          lamb * w(_LDECAY), lamb))
-            overflow_now = active & (lamb2 > w(_LMAX))
+                is_fail, jnp.maximum(wv[_LAMP], lamb * wv[_LAMP]),
+                jnp.where(active & (status2 == SolveStatus.RUNNING),
+                          lamb * wv[_LDECAY], lamb))
+            overflow_now = active & (lamb2 > wv[_LMAX])
             done_now = overflow_now | converged_now
-            iters2 = iters + active.astype(f32)
             if use_alm:
-                # dual update only on line-search exhaustion
-                # (src/cilqr_solver.cpp:377-379)
-                exh_s = exhausted if G == 1 else _tile_rows(exhausted, NH)
-                mus2 = tuple(jnp.where(exh_s, mn, m)
-                             for mn, m in zip(mu_next, mus))
                 rho2 = jnp.where(
                     exhausted,
-                    jnp.minimum((1.0 + w(_ALM_GAMMA)) * rho, w(_MAX_RHO)),
+                    jnp.minimum((1.0 + wv[_ALM_GAMMA]) * rho, wv[_MAX_RHO]),
                     rho)
-            else:
-                mus2, rho2 = mus, rho
-            out = (it + 1, (active & ~done_now).astype(f32), lamb2, status2,
-                   (conv_f | converged_now).astype(f32),
-                   (ovf_f | overflow_now).astype(f32), iters2,
-                   UA2, US2, PX2, PY2, PV2, PH2, RKX2, RKY2, RKH2,
-                   rho2, mus2)
-            return out + (probe_acc,) if _PROBE else out
+                cur_J = jnp.where(exhausted, alm_update(exhausted, rho, rho2),
+                                  cur_J)
+                rho = rho2
+            return (it + 1, active & ~done_now, lamb2, status2,
+                    conv_f | converged_now, ovf_f | overflow_now,
+                    iters + jnp.where(active, 1, 0), rho, cur_J)
 
-        ones = lane0 + 1.0  # lane-anchored 1.0 row (True as f32)
+        (_, _, lambf, statusf, convf, ovff, itersf, rhof,
+         Jf) = lax.while_loop(iter_cond, iter_body, st0)
+
+        for r, v in enumerate((itersf.astype(f32), statusf.astype(f32),
+                               jnp.where(convf, f32(1.0), f32(0.0)),
+                               jnp.where(ovff, f32(1.0), f32(0.0)), Jf,
+                               lambf, zeros, zeros)):
+            st(st_out, r, v)
         if use_alm:
-            # mu slabs and rho arrive as data (lane-varying, so the loop
-            # carries are layout-anchored for free); constraint i's slab is
-            # an NH-step chunk at a sublane-aligned offset, so the slices
-            # keep the native slab layout
-            A0 = alm_ref[:, :]  # ((C*NH + 8)*G, 128)
-            mus0 = tuple(A0[i * NHG:(i + 1) * NHG] for i in range(C))
-            rho0 = _row(A0, C * NH)
-        else:
-            rho0 = lane0 + w(_RHO_INIT)
-            mus0 = ()
-        if resume:
-            res = resume_ref[:, :]  # (8*G, 128), stats_out layout
-            iters0 = _row(res, 0)
-            status0 = _row(res, 1)
-            conv0 = _row(res, 2)
-            ovf0 = _row(res, 3)
-            lamb0 = _row(res, 5)
-            # rows exit only via converged/overflow, so active == ~(conv|ovf)
-            active0 = ((conv0 < 0.5) & (ovf0 < 0.5)).astype(f32)
-            st0 = (jnp.asarray(it0, jnp.int32), active0, lamb0,
-                   status0, conv0, ovf0, iters0,
-                   UA0, US0, PX0, PY0, PV0, PH0, RKX0, RKY0, RKH0,
-                   rho0, mus0)
-        else:
-            st0 = (jnp.asarray(0, jnp.int32), ones, lane0 + w(_ILAMB),
-                   lane0, lane0, lane0,
-                   lane0, UA0, US0, PX0, PY0, PV0, PH0, RKX0, RKY0, RKH0,
-                   rho0, mus0)
-        if _PROBE:
-            st0 = st0 + (lane0,)
-        stf = lax.while_loop(iter_cond, iter_body, st0)
-        (_, _, lambf, statusf, convf, ovff, itersf,
-         UAf, USf, PXf, PYf, PVf, PHf, RKXf, RKYf, RKHf, rhof, musf) = stf[:18]
-        probef = stf[18] if _PROBE else None
+            st(alm_out, (8 + 2 * M) * NP, rhof)
 
-        final_J = total_cost(UAf, USf, PXf, PYf, PVf, PHf, RKXf, RKYf, RKHf,
-                             rhof, musf)
-
-        u_out[0:NHG, :] = UAf
-        u_out[NHG:2 * NHG, :] = USf
-        x_out[0:NHG, :] = PXf
-        x_out[NHG:2 * NHG, :] = PYf
-        x_out[2 * NHG:3 * NHG, :] = PVf
-        x_out[3 * NHG:4 * NHG, :] = PHf
-        stats_out[0:G, :] = itersf
-        stats_out[G:2 * G, :] = statusf
-        stats_out[2 * G:3 * G, :] = convf
-        stats_out[3 * G:4 * G, :] = ovff
-        if _RESUME_PROBE and resume:
-            stats_out[4 * G:5 * G, :] = lamb0
-            stats_out[5 * G:6 * G, :] = (active0 + 10.0 * status0
-                                         + 1000.0 * iters0)
-            # echo the raw resume block through unused u_out rows (steps
-            # 8..15 of the accel slab are pads at N <= 8)
-            u_out[8 * G:16 * G, :] = res
-        else:
-            stats_out[4 * G:5 * G, :] = final_J
-            stats_out[5 * G:6 * G, :] = lambf
-        if _RESUME_PROBE:
-            # operand-integrity probe: per-column checksum of the window
-            # slab + an SMEM weights echo (see _RESUME_PROBE)
-            stats_out[6 * G:7 * G, :] = _hsum(rx) + _hsum(ry)
-            stats_out[7 * G:8 * G, :] = (lane0 + w(_CONV)
-                                         + 1000.0 * w(_WPOS)
-                                         + x0[0] + 100.0 * x0[2])
-        else:
-            stats_out[6 * G:7 * G, :] = (probef if _PROBE
-                                         else jnp.zeros((G, LANES), f32))
-            stats_out[7 * G:8 * G, :] = jnp.zeros((G, LANES), f32)
-        if use_alm:
-            for i in range(C):
-                alm_out[i * NHG:(i + 1) * NHG, :] = musf[i]
-            alm_out[C * NHG:C * NHG + G, :] = rhof
-            alm_out[C * NHG + G:C * NHG + 8 * G, :] = jnp.zeros(
-                (7 * G, LANES), f32)
-
-    return kernel
-
-
-# Extra window rows above the per-step search bound (row_limits[k] =
-# round8(w_back + slack + k * proj_rows)). Round-5 sweep at the shipped
-# target-velocity bound: 48 -> 52.5k, 32 -> 54.1k, 24 -> 54.3k,
-# 16 -> 56.1k cold solves/s with bench conv/iters unchanged
-# (tools/results/bench_cold_r5_slack*.log), and the four-scenario
-# f64-anchor validation at 16 is bit-identical to the unbounded window
-# (val_r5_slack16.log) -- the bound still never binds. 16 rows (1.6 m)
-# remains enough because the k=0 nearest row sits at <= w_back by the
-# window-gather invariant and per-step overshoot above 1.1x target is
-# transient on these workloads; ILQR_PROJ_SLACK overrides per process.
-_PROJ_SLACK = 16
+    return kernel, scratch_rows
 
 
 def derive_proj_rows(target_velocity, dt, factor: float = 1.1):
-    """Per-step projection search-bound derivation (rows per horizon step).
+    """Rows per horizon step for the projection search bound.
 
-    Step k's nearest-row scan is bounded by w_back + slack + k * rows
-    (see ``cilqr_solve_pallas``). Rows advance 0.1 m apart (the
-    reference line's sample spacing, src/utils.cpp:21-35), so the ego
-    consumes ``v * dt / 0.1`` rows per step. Round 5 changed the speed
-    basis from the SPEED LIMIT (1.5 * velo_max -- guaranteed to never
-    bind, but 2-3x looser than any realized trajectory) to a headroom
-    factor over the TARGET velocity the tracking cost actually pulls
-    toward. Measured (cold batch 8192): factor 1.3 -> 50.0k solves/s
-    (+11.8%), factor 1.1 -> 51.8k (+15.9%); MPC episodes 133.0k / 137.0k
-    (tools/results/bench_{cold,mpc}_r5_proj{11,9}.log). A trial that
-    transiently overshoots the bound only scans a subset and can only
-    see a HIGHER cost for that trial (min over fewer rows), so this is
-    a statistical mode like proj_dot -- and at BOTH factors the four-
-    scenario f64-anchor validation is green with statistics identical
-    to the unbounded window, i.e. the bound never binds on the
-    validation batches (tools/results/val_r5_projtarget{,11}.log).
-    Default 1.1 = the validated aggressive setting; the 48-row slack in
-    row_limits absorbs transient overshoot above target speed."""
-    import math
-
+    Step k's nearest-row scan is bounded by w_back + PROJ_SLACK + k * rows
+    (see :func:`cilqr_solve_pallas`). Reference-line samples are 0.1 m
+    apart (src/utils.cpp:21-35), so the ego consumes ``v * dt / 0.1`` rows
+    per step; the bound takes ``factor`` headroom over the TARGET velocity
+    the tracking cost pulls toward. A trial that overshoots the bound only
+    scans a subset of the window, which can only raise its cost (a min
+    over fewer rows), so a bound that never binds on accepted trajectories
+    leaves solutions unchanged; whether it binds is what the f64-anchor
+    gate (tools/validate_kernel.py) checks per scenario."""
     return int(math.ceil(factor * float(target_velocity) * float(dt) / 0.1))
 
 
-def cilqr_solve_pallas(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b,
-                       window: int = 512, interpret: bool = False,
-                       u_init=None, straggler_cap: int = 0,
-                       proj_rows_per_step: int = 0, groups: int = 1,
-                       alm_mu0=None, alm_rho0=None, return_alm: bool = False,
-                       w_back: int = W_BACK, ls_chunk: int | None = None,
-                       proj_dot: bool | None = None,
-                       proj_fold: bool | None = None):
-    """Batched CILQR solve via the fused kernel.
-
-    Args mirror :func:`ilqr_tpu.solvers.cilqr.solve_batch`. x0_b: (B, 4);
-    scenario_b: Scenario with leading batch axis. B is padded to a
-    multiple of 128 internally.
-
-    Returns (u (B, N, 2), x (B, N+1, 4), SolveStats), plus
-    (alm_mu (B, N, C), alm_rho (B,)) when ``return_alm``.
-
-    ALM warm starts: ``alm_mu0`` (B, N, C) / ``alm_rho0`` (B,) seed the
-    dual state (None = the reference's cold reset, zero mu + rho_init,
-    src/cilqr_solver.cpp:88-93). The warm-start *policy* -- when to reuse
-    the previous solve's duals vs reset (:88-102) -- lives in the caller,
-    exactly as :func:`ilqr_tpu.solvers.cilqr.solve` takes it from the
-    carry; pass the previous solve's ``return_alm`` outputs to carry.
-
-    ``window`` is the per-scenario reference-line span (0.1 m samples: 64
-    behind the ego's initial projection, window-64 ahead) every projection
-    searches. It must cover everything the planned trajectories can reach
-    (~ realized speed x N x dt / 0.1 m + margin); too-small windows
-    silently distort the road-border/tracking costs -- on all four shipped
-    scenarios, 384 reproduces the full-line solutions and convergence
-    statistics (window=768 is bit-identical, tools/validate_kernel_tpu.py)
-    while 256 does not, so the default keeps a safety margin above 384.
-
-    ``straggler_cap``: straggler compaction. Lockstep tiles
-    pay the *max* iteration count over their 128 lanes (p50 is ~9 but rare
-    rows run the full max_iter budget -- docs/PERFORMANCE.md "Lockstep
-    economics"). With a cap K, phase 1 runs every row for at most K
-    lockstep iterations; rows still unconverged are then stably sorted to
-    the front (one argsort + column gathers, O(bytes) on XLA), packed into
-    dense tiles, and resumed exactly where they stopped for the remaining
-    max_iter - K budget; all-done tiles exit their solver loop immediately.
-    Bitwise-identical results to a single-pass solve (the resume carry is
-    exact -- see ``_build_kernel``); 0 disables. A tuple of strictly
-    increasing caps runs a multi-phase schedule (re-sorting at each cap),
-    which additionally isolates never-converging oscillator rows into
-    their own tiles.
-
-    ``proj_rows_per_step``: per-step projection search bound. Step k's
-    nearest-point scan is limited to the first W_BACK + 48 + k * this many
-    window rows (0 disables = full window every step). Exactness holds as
-    long as trajectories advance at most this many 0.1 m samples per step;
-    set to ceil(1.5 * velo_max * dt / 0.1) for headroom over the speed
-    limit (trial rollouts can transiently exceed velo_max; a too-tight
-    bound can only raise a trial's cost, i.e. reject near-marginal steps,
-    never accept new ones -- see project()).
-
-    ``w_back``: window rows kept behind the ego's initial projection
-    (default 64 = 6.4 m). Every per-step search bound includes these rows,
-    so shrinking it cuts projection work (the largest single cost in the
-    kernel, docs/PERFORMANCE.md "Where the kernel time goes") at the risk
-    of clipping trajectories whose nearest point regresses behind the
-    start; with v >= 0 dynamics the regression is bounded by lateral
-    excursions (validate on-hardware before changing the default).
-
-    ``groups``: scenario groups per kernel tile (see ``_build_kernel``).
-    groups=8 packs 1024 scenarios per tile so every per-step quantity is
-    a full (8, 128) vector register; fold-based reduction orders differ
-    from groups=1 in f32 rounding, so per-row iteration paths can diverge
-    near accept thresholds while solution statistics agree (the same
-    criteria as TPU-vs-CPU validation, tools/validate_kernel_tpu.py).
-
-    ``ls_chunk``: chunked line search width (see ``_build_kernel``) --
-    bitwise-identical results to the serial loop, fewer trial-rollout
-    chains per solver iteration. None resolves to the ILQR_LS_CHUNK env
-    var at G=1; forced to the serial loop (0) at G>1 and under the perf
-    probes (which instrument the serial loop's body).
-
-    ``proj_dot``: dot-form nearest-point scoring (see ``_build_kernel``)
-    -- statistically equivalent, not bitwise (f32 argmin near-ties can
-    resolve differently). None resolves to the ILQR_PROJ_DOT env var:
-    default ON for hardware (measured +5.9% cold solves with all four
-    scenarios inside the f64-anchor validation bands --
-    tools/results/bench_cold_projdot.log, val_r4_projdot.log), OFF in
-    interpret mode so the CPU test vehicle keeps the squared-distance
-    form the bitwise parity tests pin down. Forced off at G>1.
-
-    ``proj_fold``: pair-fold projection reduction (see ``_build_kernel``)
-    -- experimental statistical mode, None resolves to the
-    ILQR_PROJ_FOLD env var (default off everywhere). Forced off at G>1.
-    """
-    if proj_dot is None:
-        proj_dot = _os.environ.get(
-            "ILQR_PROJ_DOT", "0" if interpret else "1") == "1"
-    if proj_fold is None:
-        # experimental (see _build_kernel); off by default everywhere
-        proj_fold = _os.environ.get("ILQR_PROJ_FOLD", "0") == "1"
-    if groups > 1:
-        proj_dot = False
-        proj_fold = False
-    if ls_chunk is None:
-        # width 4 measured best on hardware: +13% cold solves, +15%
-        # 10-tick warm MPC, noise-neutral on 120-tick episodes; width 8
-        # loses 4-5% (docs/PERFORMANCE.md "Chunked packed-alpha line
-        # search"). Interpret mode (the CPU test vehicle) defaults to the
-        # serial loop: the packed while-body is ~4x larger and XLA:CPU's
-        # compile of the sharded ALM interpret variant segfaults on it;
-        # explicit ls_chunk (tests) is still honored. Resolved HERE, in
-        # the non-jitted wrapper, so the effective width is always part
-        # of the jit cache key -- changing ILQR_LS_CHUNK mid-process
-        # takes effect for DIRECT (eager) calls instead of being baked in
-        # at first trace (round-3 advisor finding). Caveat (round-4
-        # advisor): when this wrapper is itself traced inside an outer jit
-        # (run_mpc_kernel_scan, the chunked episode driver), the env value
-        # read at the outer program's first trace is baked into THAT
-        # cache; restart the process (or change the outer cache key) to
-        # re-resolve there.
-        default = "0" if interpret else "4"
-        ls_chunk = int(_os.environ.get("ILQR_LS_CHUNK", default))
-    if groups > 1 or _PROBE:
-        ls_chunk = 0
-    # experiment knob (direct calls only, same caveat as ILQR_LS_CHUNK):
-    # extra window rows above the per-step search bound; buffers sustained
-    # over-target speeds under the round-5 target-velocity bound
-    proj_slack = int(_os.environ.get("ILQR_PROJ_SLACK", str(_PROJ_SLACK)))
-    return _cilqr_solve_pallas_jit(
-        cfg, w, x0_b, scenario_b, window=window, interpret=interpret,
-        u_init=u_init, straggler_cap=straggler_cap,
-        proj_rows_per_step=proj_rows_per_step, groups=groups,
-        alm_mu0=alm_mu0, alm_rho0=alm_rho0, return_alm=return_alm,
-        w_back=w_back, ls_chunk=ls_chunk, proj_dot=proj_dot,
-        proj_fold=proj_fold, proj_slack=proj_slack)
+# straggler schedule for warm-started MPC ticks (they converge in fewer
+# iterations than cold solves, so compacting earlier pays)
+WARM_CAP = (6, 12, 24)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("cfg", "window", "interpret", "straggler_cap",
-                     "proj_rows_per_step", "groups", "return_alm",
-                     "w_back", "ls_chunk", "proj_dot", "proj_fold",
-                     "proj_slack"),
-)
-def _cilqr_solve_pallas_jit(cfg: CILQRConfig, w: CILQRWeights, x0_b,
-                            scenario_b, window: int, interpret: bool,
-                            u_init, straggler_cap, proj_rows_per_step: int,
-                            groups: int, alm_mu0, alm_rho0,
-                            return_alm: bool, w_back: int, ls_chunk: int,
-                            proj_dot: bool, proj_fold: bool,
-                            proj_slack: int = _PROJ_SLACK):
-    """Jitted body of :func:`cilqr_solve_pallas` (ls_chunk already
-    resolved to an int by the wrapper)."""
-    N, M = cfg.N, max(cfg.num_obstacles, 1)
-    assert N + 1 <= NH
-    G = groups
-    assert not (_PROBE and G > 1), "perf probes are groups=1 only"
-    f32 = jnp.float32
-    x0_b = jnp.asarray(x0_b, f32)
-    B = x0_b.shape[0]
-    Bp = -(-B // (LANES * G)) * (LANES * G)
-    W = window
+def tuned_options(gc, block: int = BLOCK) -> dict:
+    """The kernel options the benchmark, the sweep and the validation gate
+    pass: a 384-sample window with 24 rows behind the ego, straggler caps
+    8, 16, 32, the target-velocity projection bound, 4 alphas per
+    line-search sweep and dot-form projection scores. Each setting leaves
+    the four shipped scenarios inside the f64-anchor gate
+    (tools/validate_kernel.py)."""
+    return dict(window=384, w_back=24, straggler_cap=(8, 16, 32),
+                proj_rows_per_step=derive_proj_rows(
+                    gc["vehicle/target_velocity"], gc["delta_t"]),
+                ls_chunk=4, proj_dot=True, block=block)
 
-    def _ilv(a):
-        """(R, Bp) scenario-major -> (R*G, Bp/G) group-interleaved: packed
-        row r*G+g, col t*128+l holds a[r, (t*G+g)*128+l]."""
-        if G == 1:
-            return a
-        R = a.shape[0]
-        return (a.reshape(R, Bp // (G * LANES), G, LANES)
-                .transpose(0, 2, 1, 3).reshape(R * G, Bp // G))
 
-    def _unilv(a):
-        """Inverse of :func:`_ilv`."""
-        if G == 1:
-            return a
-        RG = a.shape[0]
-        return (a.reshape(RG // G, G, Bp // (G * LANES), LANES)
-                .transpose(0, 2, 1, 3).reshape(RG // G, Bp))
-
-    ref = jnp.asarray(scenario_b.ref_line, f32)  # (B, P, 4)
-    P = ref.shape[1]
-    # per-row window: center on the ego's initial nearest index. The start
-    # is NOT clamped to P - W: near the line end the tail rows repeat the
-    # last sample (ties resolve to the first copy, whose values are
-    # identical), which pins the ego's initial projection at row <= W_BACK
-    # -- the invariant the per-step search bounds below rely on.
-    d2 = (ref[:, :, 0] - x0_b[:, None, 0]) ** 2 + (ref[:, :, 1] - x0_b[:, None, 1]) ** 2
-    c = jnp.argmin(d2, axis=1)
-    start = jnp.maximum(c - w_back, 0)
-    gidx = start[:, None] + jnp.arange(W)[None, :]
-    gidx = jnp.minimum(gidx, P - 1)
-    win = jnp.take_along_axis(ref, gidx[:, :, None], axis=1)  # (B, W, 4)
-
-    obs = jnp.asarray(scenario_b.obs_preds, f32)  # (B, M0, N+1, 3)
-    if cfg.num_obstacles == 0:
-        obs = jnp.full((B, 1, N + 1, 3), 1e6, f32)
-    # pad horizon rows to NH
-    obs = jnp.pad(obs, ((0, 0), (0, 0), (0, NH - (N + 1)), (0, 0)),
-                  constant_values=1e6)
-
-    def pad_b(a):
-        # Batch pads to a LANES*G multiple (1024 rows at G=8). Padded lanes
-        # replicate the last real scenario (mode="edge") rather than zeros:
-        # a zero scenario never converges, so zero-padding would make every
-        # tile containing pad lanes run to max_iter and re-sort the pads as
-        # stragglers each compaction phase. Edge copies converge exactly
-        # when their source row does. Results are sliced back to [:B].
-        return jnp.pad(a, ((0, Bp - B),) + ((0, 0),) * (a.ndim - 1),
-                       mode="edge")
-
-    x0_in = jnp.concatenate(
-        [x0_b, jnp.broadcast_to(scenario_b.road_borders, (B, 2)).astype(f32),
-         jnp.broadcast_to(jnp.asarray(scenario_b.ref_velo, f32).reshape(B, -1)[:, :1], (B, 1)),
-         jnp.zeros((B, 1), f32)], axis=1)  # (B, 8)
-    x0_in = pad_b(x0_in).T  # (8, Bp)
-    if u_init is None:
-        uinit = jnp.zeros((2 * NH, Bp), f32)
-    else:
-        u_init = jnp.asarray(u_init, f32)  # (B, N, 2): warm-start controls
-        ui = jnp.zeros((B, 2 * NH), f32)
-        ui = ui.at[:, :N].set(u_init[:, :, 0]).at[:, NH:NH + N].set(u_init[:, :, 1])
-        uinit = pad_b(ui).T
-    rx = pad_b(win[:, :, 0]).T  # (W, Bp)
-    ry = pad_b(win[:, :, 1]).T
-    ryaw = pad_b(win[:, :, 2]).T
-    ox = pad_b(obs[:, :, :, 0].reshape(B, M * NH)).T  # (M*NH, Bp)
-    oy = pad_b(obs[:, :, :, 1].reshape(B, M * NH)).T
-    oyaw = pad_b(obs[:, :, :, 2].reshape(B, M * NH)).T
-
-    alm = cfg.solve_type == "alm"
-    C_k = 8 + 2 * M  # kernel dual columns (incl. the inert fake obstacle)
-    if alm:
-        # dual-state input slab: C_k mu slabs + an 8-row tail whose first
-        # row is rho (see _build_kernel). Column k of the (N, C0) carry
-        # maps to slab step rows k (control cols 0-3) / k+1 (state and
-        # obstacle cols), mirroring the kernel's ctrl_mask/state_mask rows.
-        slab = jnp.zeros((B, C_k, NH), f32)
-        if alm_mu0 is not None:
-            mu_t = jnp.moveaxis(jnp.asarray(alm_mu0, f32), -1, 1)  # (B,C0,N)
-            C0 = mu_t.shape[1]
-            slab = slab.at[:, :4, 0:N].set(mu_t[:, :4])
-            slab = slab.at[:, 4:C0, 1:N + 1].set(mu_t[:, 4:])
-        rho_in = (jnp.broadcast_to(jnp.asarray(alm_rho0, f32), (B,))
-                  if alm_rho0 is not None
-                  else jnp.broadcast_to(jnp.asarray(w.alm_rho_init, f32), (B,)))
-        tail = jnp.zeros((B, 8), f32).at[:, 0].set(rho_in)
-        alm_in = pad_b(
-            jnp.concatenate([slab.reshape(B, C_k * NH), tail], axis=1)).T
-    else:
-        alm_in = None
-
-    wt = jnp.zeros((_NWTS, 1), f32)
+def _weights_vector(w: CILQRWeights):
     vals = {
         _DT: w.dt, _WB: w.wheelbase, _WIDTH: w.width, _LENGTH: w.length,
         _DSAFE: w.d_safe, _VMAX: w.velo_max, _VMIN: w.velo_min,
@@ -1523,118 +784,221 @@ def _cilqr_solve_pallas_jit(cfg: CILQRConfig, w: CILQRWeights, x0_b,
         _ALM_GAMMA: w.alm_gamma, _MAX_RHO: w.max_rho, _MAX_MU: w.max_mu,
         _RHO_INIT: w.alm_rho_init,
     }
+    wt = jnp.zeros((_NWTS,), jnp.float32)
     for i, v in vals.items():
-        wt = wt.at[i, 0].set(jnp.asarray(v, f32))
+        wt = wt.at[i].set(jnp.asarray(v, jnp.float32))
+    return wt
 
+
+def padded_batch(B: int, block: int) -> int:
+    """Rows the kernel runs for a batch of B: the next multiple of block."""
+    assert block > 0 and block & (block - 1) == 0, \
+        "block must be a power of two"
+    return -(-B // block) * block
+
+
+@functools.partial(
+    jax.jit,
+    static_argnames=("cfg", "window", "interpret", "straggler_cap",
+                     "proj_rows_per_step", "return_alm", "w_back",
+                     "ls_chunk", "proj_dot", "block"),
+)
+def cilqr_solve_pallas(cfg: CILQRConfig, w: CILQRWeights, x0_b, scenario_b,
+                       window: int = 512, interpret: bool = False,
+                       u_init=None, straggler_cap=0,
+                       proj_rows_per_step: int = 0,
+                       alm_mu0=None, alm_rho0=None, return_alm: bool = False,
+                       w_back: int = W_BACK, ls_chunk: int = 0,
+                       proj_dot: bool = False, block: int = BLOCK):
+    """Batched CILQR solve via the fused kernel.
+
+    Args mirror :func:`ilqr_tpu.solvers.cilqr.solve_batch`. x0_b: (B, 4);
+    scenario_b: Scenario with leading batch axis. B is padded to a multiple
+    of ``block`` internally.
+
+    Returns (u (B, N, 2), x (B, N+1, 4), SolveStats), plus
+    (alm_mu (B, N, C), alm_rho (B,)) when ``return_alm``.
+
+    ``interpret``: run the kernel in the Pallas interpreter (the CPU test
+    vehicle). Never chosen implicitly.
+
+    ALM warm starts: ``alm_mu0`` (B, N, C) / ``alm_rho0`` (B,) seed the dual
+    state (None = the reference's cold reset, zero mu + rho_init,
+    src/cilqr_solver.cpp:88-93). The warm-start *policy* lives in the
+    caller, exactly as :func:`ilqr_tpu.solvers.cilqr.solve` takes it from
+    the carry; pass the previous solve's ``return_alm`` outputs to carry.
+
+    ``window``: per-scenario reference-line span in 0.1 m samples
+    (``w_back`` rows behind the ego's initial projection, the rest ahead)
+    that every projection searches. It must cover everything the planned
+    trajectories can reach; too small a window silently distorts the
+    road-border and tracking costs, which the f64-anchor gate
+    (tools/validate_kernel.py) detects.
+
+    ``straggler_cap``: straggler compaction. A block pays the *max*
+    iteration count over its rows. With a cap K, phase 1 runs every row
+    for at most K iterations; rows still running are then stably sorted to
+    the front (one argsort + column gathers), packed into dense blocks, and
+    resumed exactly where they stopped for the remaining budget; all-done
+    blocks exit their solver loop immediately. Bitwise-identical results to
+    a single pass (the resume carry is exact -- see ``_build_kernel``); 0
+    disables. A tuple of strictly increasing caps runs a multi-phase
+    schedule.
+
+    ``proj_rows_per_step``: per-step projection search bound (see
+    :func:`derive_proj_rows`); step k scans the first
+    round8(w_back + PROJ_SLACK + k * this) window rows; 0 scans the whole
+    window every step.
+
+    ``ls_chunk``: line-search alphas evaluated per forward sweep; 0 = one
+    (the serial early-exit loop). Bitwise-identical results at every width.
+
+    ``proj_dot``: centered dot-form nearest-point scoring -- the same
+    exact-arithmetic argmin as the squared distance, different f32
+    rounding, so it matches the default statistically, not bitwise.
+
+    ``block``: scenarios per program, a power of two, one per thread; on
+    the GPU a multiple of 32 (whole warps, one element per thread, so
+    every thread reads back exactly the rows it wrote).
+    """
+    N, M = cfg.N, cfg.num_obstacles
+    NP = N + 1
+    f32 = jnp.float32
+    x0_b = jnp.asarray(x0_b, f32)
+    B = x0_b.shape[0]
+    Bp = padded_batch(B, block)
+    W = window
+
+    ref = jnp.asarray(scenario_b.ref_line, f32)  # (B, P, 4)
+    P = ref.shape[1]
+    # per-row window: center on the ego's initial nearest index. The start
+    # is NOT clamped to P - W: near the line end the tail rows repeat the
+    # last sample (ties resolve to the first copy, whose values are
+    # identical), which pins the ego's initial projection at row <= w_back
+    # -- the invariant the per-step search bounds rely on.
+    d2 = ((ref[:, :, 0] - x0_b[:, None, 0]) ** 2
+          + (ref[:, :, 1] - x0_b[:, None, 1]) ** 2)
+    c = jnp.argmin(d2, axis=1)
+    start = jnp.maximum(c - w_back, 0)
+    gidx = jnp.minimum(start[:, None] + jnp.arange(W)[None, :], P - 1)
+    win = jnp.take_along_axis(ref, gidx[:, :, None], axis=1)  # (B, W, 4)
+    wins = [win[:, :, 0], win[:, :, 1], win[:, :, 2], jnp.cos(win[:, :, 2]),
+            jnp.sin(win[:, :, 2])]
+    if proj_dot:
+        # hoisted score terms in coordinates centered on window row 0
+        rxc = win[:, :, 0] - win[:, :1, 0]
+        ryc = win[:, :, 1] - win[:, :1, 1]
+        wins += [rxc * rxc + ryc * ryc, -2.0 * rxc, -2.0 * ryc]
+
+    def pad_b(a):
+        # Padded rows replicate the last real scenario (mode="edge") rather
+        # than zeros: a zero scenario never converges, so zero rows would
+        # keep their block running to max_iter and re-sort as stragglers
+        # in every compaction phase. Edge copies converge exactly when
+        # their source row does. Results are sliced back to [:B].
+        return jnp.pad(a, ((0, Bp - B),) + ((0, 0),) * (a.ndim - 1),
+                       mode="edge")
+
+    def cols(a):
+        """(B, ...) -> (rows, Bp): batch on the minor axis."""
+        return pad_b(a.reshape(B, -1)).T
+
+    x0_in = cols(jnp.concatenate(
+        [x0_b, jnp.broadcast_to(scenario_b.road_borders, (B, 2)).astype(f32),
+         jnp.asarray(scenario_b.ref_velo, f32).reshape(B, -1)[:, :1],
+         jnp.zeros((B, 1), f32)], axis=1))  # (8, Bp)
+    if u_init is None:
+        uinit = jnp.zeros((2 * N, Bp), f32)
+    else:
+        u_init = jnp.asarray(u_init, f32)  # (B, N, 2)
+        uinit = cols(jnp.concatenate([u_init[:, :, 0], u_init[:, :, 1]], 1))
+    win_in = cols(jnp.concatenate(wins, axis=1))  # (nq * W, Bp)
+    if M:
+        obs = jnp.asarray(scenario_b.obs_preds, f32)  # (B, M, N+1, 3)
+        oq = [obs[..., 0], obs[..., 1], jnp.cos(obs[..., 2]),
+              jnp.sin(obs[..., 2])]
+        obs_in = cols(jnp.stack(oq, axis=1))  # (4 * M * NP, Bp)
+    else:
+        obs_in = jnp.zeros((1, Bp), f32)
+
+    alm = cfg.solve_type == "alm"
+    C = 8 + 2 * M
+    if alm:
+        # dual rows: C constraint columns x NP steps + rho. Column c of the
+        # (N, C) carry maps to step rows k (control cols 0-3) / k+1 (state
+        # and obstacle cols), the steps each constraint is evaluated at.
+        slab = jnp.zeros((B, C, NP), f32)
+        if alm_mu0 is not None:
+            mu_t = jnp.moveaxis(jnp.asarray(alm_mu0, f32), -1, 1)  # (B,C,N)
+            slab = slab.at[:, :4, 0:N].set(mu_t[:, :4])
+            slab = slab.at[:, 4:, 1:].set(mu_t[:, 4:])
+        rho_in = jnp.broadcast_to(
+            jnp.asarray(w.alm_rho_init if alm_rho0 is None else alm_rho0,
+                        f32), (B,))
+        alm_in = cols(jnp.concatenate([slab.reshape(B, C * NP),
+                                       rho_in[:, None]], axis=1))
+    else:
+        alm_in = None
+
+    wt = _weights_vector(w)
     n_alphas = _alpha_count(cfg.min_alpha)
     rear = cfg.reference_point == "rear_center"
+    proj_bound = ((w_back, PROJ_SLACK, proj_rows_per_step)
+                  if proj_rows_per_step > 0 else None)
+    kernel, scratch_rows = _build_kernel(
+        N, M, W, n_alphas, rear, alm, block=block, cw=max(ls_chunk, 1),
+        proj_dot=proj_dot, proj_bound=proj_bound)
+    out_shape = [jax.ShapeDtypeStruct((2 * N, Bp), f32),
+                 jax.ShapeDtypeStruct((4 * NP, Bp), f32),
+                 jax.ShapeDtypeStruct((8, Bp), f32)]
+    if alm:
+        out_shape.append(jax.ShapeDtypeStruct(alm_in.shape, f32))
+    out_shape.append(jax.ShapeDtypeStruct((scratch_rows, Bp), f32))
+    n_in = 7 if alm else 6
+    solve_call = pl.pallas_call(
+        kernel,
+        grid=(Bp // block,),
+        in_specs=[pl.no_block_spec] * n_in,
+        out_specs=[pl.no_block_spec] * len(out_shape),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=max(block // 32, 1), num_stages=1),
+        interpret=interpret,
+        name="cilqr_solve",
+    )
 
-    grid = (Bp // (LANES * G),)
-    bspec = lambda rows: pl.BlockSpec((rows, LANES), lambda i: (0, i),
-                                      memory_space=pltpu.VMEM)
-
-    if proj_rows_per_step > 0:
-        # per-step static search bounds (see project() docstring); rounded
-        # to vreg sublane multiples
-        row_limits = tuple(
-            min(W, -(-(w_back + proj_slack + k * proj_rows_per_step) // 8) * 8)
-            for k in range(N + 1))
-    else:
-        row_limits = None
-
-    def call_kernel(uinit_s, x0_s, rx_s, ry_s, ryaw_s, ox_s, oy_s, oyaw_s,
-                    resume_rows, max_iter_k, it0_k, alm_s=None):
-        # args arrive scenario-major; the kernel sees them group-interleaved
-        kernel = _build_kernel(N, M, W, max_iter_k, n_alphas, rear, alm,
-                               resume=resume_rows is not None, it0=it0_k,
-                               row_limits=row_limits, G=G, ls_chunk=ls_chunk,
-                               proj_dot=proj_dot, proj_fold=proj_fold)
-        in_specs = [
-            pl.BlockSpec((_NWTS, 1), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            bspec(8 * G), bspec(2 * NH * G), bspec(W * G), bspec(W * G),
-            bspec(W * G), bspec(M * NH * G), bspec(M * NH * G),
-            bspec(M * NH * G),
-        ]
-        args = [wt] + [_ilv(a) for a in
-                       (x0_s, uinit_s, rx_s, ry_s, ryaw_s, ox_s, oy_s, oyaw_s)]
-        if resume_rows is not None:
-            in_specs.append(bspec(8 * G))
-            args.append(_ilv(resume_rows))
-        out_specs = [bspec(2 * NH * G), bspec(4 * NH * G), bspec(8 * G)]
-        out_shape = [
-            jax.ShapeDtypeStruct((2 * NH * G, Bp // G), f32),
-            jax.ShapeDtypeStruct((4 * NH * G, Bp // G), f32),
-            jax.ShapeDtypeStruct((8 * G, Bp // G), f32),
-        ]
-        if alm:
-            in_specs.append(bspec((C_k * NH + 8) * G))
-            args.append(_ilv(alm_s))
-            out_specs.append(bspec((C_k * NH + 8) * G))
-            out_shape.append(
-                jax.ShapeDtypeStruct(((C_k * NH + 8) * G, Bp // G), f32))
-        # At G>1 the kernel's live values are ~8x the G=1 case (full-vreg
-        # per-step rows), far beyond Mosaic's default 16 MiB scoped-vmem
-        # budget: measured stack demands on v5e at G=8/W=384 are 67.1M
-        # (M=4 main variant) and 87.9M (resume variant). v5e has 128 MiB
-        # VMEM and the double-buffered block I/O is ~15 MiB, so a 100 MiB
-        # scoped budget fits.
-        compiler_params = (
-            pltpu.CompilerParams(vmem_limit_bytes=100 * 1024 * 1024)
-            if G > 1 else None)
-        outs = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=in_specs,
-            out_specs=out_specs,
-            out_shape=out_shape,
-            interpret=interpret,
-            compiler_params=compiler_params,
-        )(*args)
-        outs = tuple(_unilv(o) for o in outs)
+    def call_kernel(it0, max_it, x0_s, u_s, stats_s, win_s, obs_s, alm_s):
+        wt_k = wt.at[_IT0].set(it0).at[_MAXIT].set(max_it)
+        args = (wt_k, x0_s, u_s, stats_s, win_s, obs_s) + (
+            (alm_s,) if alm else ())
+        outs = solve_call(*args)[:-1]  # drop the scratch
         return outs if alm else outs + (None,)
 
     caps = (straggler_cap if isinstance(straggler_cap, tuple)
             else ((straggler_cap,) if straggler_cap else ()))
     caps = tuple(c for c in caps if 0 < c < cfg.max_iter)
-    if (caps and G > 1 and not interpret
-            and _os.environ.get("ILQR_UNSAFE_ALLOW_G8_CAP") != "1"):
-        # KNOWN MISCOMPILE (v5e, jax 0.9/Mosaic): in a multi-pallas_call
-        # program (capped phase + sorted resume) at G>1, the phase-1 call
-        # returns catastrophically wrong results even though (a) the same
-        # MLIR standalone is correct, (b) in-kernel checksums show every
-        # operand arrives intact, (c) interpret mode is bitwise-exact, and
-        # (d) minimal echo/carry/zero-trip/gather-dataflow repros all
-        # pass. optimization_barrier on operands does not help, implicating
-        # XLA buffer assignment around the inter-phase gathers. See
-        # docs/PERFORMANCE.md "groups=8" for the full investigation and
-        # tools/results/g8_resume_tpu.log for the failure signature.
-        # groups>1 also measures ~2.3x slower than groups=1 uncapped, so
-        # the combination has no use case; refuse rather than return
-        # silently wrong results. ILQR_UNSAFE_ALLOW_G8_CAP=1 bypasses the
-        # guard -- for tools/xla_canary.py ONLY, which runs the known-bad
-        # shape on purpose to detect toolchain changes.
-        raise NotImplementedError(
-            "groups>1 + straggler_cap miscompiles on TPU (XLA multi-call "
-            "buffer bug, docs/PERFORMANCE.md); use groups=1 (default, "
-            "faster) or straggler_cap=0")
     assert all(a < b for a, b in zip(caps, caps[1:])), \
         "straggler_cap phases must be strictly increasing"
-    schedule = caps + (cfg.max_iter,)
+    schedule = (0,) + caps + (cfg.max_iter,)
+    # cold start = a resume from zero iterations at lambda = init_lamb
+    stats0 = jnp.zeros((8, Bp), f32).at[5].set(wt[_ILAMB])
+    ins = [x0_in, win_in, obs_in]
     u_out, x_out, stats_out, alm_out = call_kernel(
-        uinit, x0_in, rx, ry, ryaw, ox, oy, oyaw, None, schedule[0], 0,
+        schedule[0], schedule[1], x0_in, uinit, stats0, win_in, obs_in,
         alm_in)
-    if len(schedule) > 1:
+    if len(schedule) > 2:
         # order[j] = original column of current column j (composed perms)
         order = jnp.arange(Bp)
-        ins = [x0_in, rx, ry, ryaw, ox, oy, oyaw]
-        for i in range(1, len(schedule)):
-            done = ((stats_out[2] > 0.5) | (stats_out[3] > 0.5)).astype(jnp.int32)
+        for i in range(1, len(schedule) - 1):
+            done = ((stats_out[2] > 0.5) | (stats_out[3] > 0.5)).astype(
+                jnp.int32)
             perm = jnp.argsort(done)  # stable: stragglers first, order kept
             order = order[perm]
             ins = [a[:, perm] for a in ins]
             u_out, x_out, stats_out, alm_out = call_kernel(
-                u_out[:, perm], *ins, stats_out[:, perm],
-                schedule[i], schedule[i - 1],
+                schedule[i], schedule[i + 1], ins[0], u_out[:, perm],
+                stats_out[:, perm], ins[1], ins[2],
                 alm_out[:, perm] if alm else None)
         inv = jnp.argsort(order)
         u_out = u_out[:, inv]
@@ -1643,11 +1007,10 @@ def _cilqr_solve_pallas_jit(cfg: CILQRConfig, w: CILQRWeights, x0_b,
         if alm:
             alm_out = alm_out[:, inv]
 
-    u = jnp.stack([u_out[0:N, :B], u_out[NH:NH + N, :B]], axis=-1)
+    u = jnp.stack([u_out[0:N, :B], u_out[N:2 * N, :B]], axis=-1)
     u = jnp.moveaxis(u, 1, 0)  # (B, N, 2)
-    xs = jnp.stack([x_out[0:N + 1, :B], x_out[NH:NH + N + 1, :B],
-                    x_out[2 * NH:2 * NH + N + 1, :B],
-                    x_out[3 * NH:3 * NH + N + 1, :B]], axis=-1)
+    xs = jnp.stack([x_out[q * NP:(q + 1) * NP, :B] for q in range(4)],
+                   axis=-1)
     xs = jnp.moveaxis(xs, 1, 0)  # (B, N+1, 4)
     stats = SolveStats(
         iters=stats_out[0, :B].astype(jnp.int32),
@@ -1657,19 +1020,12 @@ def _cilqr_solve_pallas_jit(cfg: CILQRConfig, w: CILQRWeights, x0_b,
         final_cost=stats_out[4, :B],
         final_lamb=stats_out[5, :B],
     )
-    if _RESUME_PROBE:
-        # raw slabs: u_out rows 8..16 echo the resume block (resume
-        # variant); stats_out rows 6..8 carry operand checksums
-        return u, xs, stats, (u_out, stats_out)
     if not return_alm:
         return u, xs, stats
-    # unpack the final duals into the (B, N, C0) carry layout of
-    # types.CILQRCarry (C0 = 8 + 2*num_obstacles; the fake-obstacle
-    # columns of an obstacle-free config are dropped)
-    C0 = 8 + 2 * cfg.num_obstacles
-    slab_f = alm_out[:C_k * NH].reshape(C_k, NH, Bp)
-    mu_f = jnp.concatenate(
-        [slab_f[:4, 0:N], slab_f[4:C0, 1:N + 1]], axis=0)  # (C0, N, Bp)
-    mu_f = jnp.transpose(mu_f, (2, 1, 0))[:B]  # (B, N, C0)
-    rho_f = alm_out[C_k * NH, :B]
+    # unpack the final duals into the (B, N, C) carry layout of
+    # types.CILQRCarry
+    slab_f = alm_out[:C * NP].reshape(C, NP, Bp)
+    mu_f = jnp.concatenate([slab_f[:4, 0:N], slab_f[4:, 1:]], axis=0)
+    mu_f = jnp.transpose(mu_f, (2, 1, 0))[:B]  # (B, N, C)
+    rho_f = alm_out[C * NP, :B]
     return u, xs, stats, (mu_f, rho_f)

@@ -7,8 +7,8 @@ The reference has two semantics for "exact reference point":
 
 On the shipped scenarios (monotone progress along the lane) both agree; we
 implement the *global argmin* because it is embarrassingly parallel over
-(batch, horizon) with no sequential dependency -- the TPU-native choice
-(SURVEY.md section 7 "Hard parts"). The fused TPU kernel additionally
+(batch, horizon) with no sequential dependency -- the batched choice
+(SURVEY.md section 7 "Hard parts"). The fused kernel additionally
 windows its candidate set (see ops/pallas/cilqr_kernel.py).
 
 Padded reference-line rows (x = y = PAD_COORD) never win the argmin.
@@ -38,8 +38,8 @@ def nearest_ref_points(pos, ref_line, method: str = "exact"):
         whenever the lane line is locally smooth at the 0.8 m scale
         (holds for every shipped scenario; validated against "exact" in
         tests). Perf option for the XLA-composed solver only (pick via
-        CILQRConfig.projection); the fused TPU kernel has its own slab
-        windowing and does not use this module.
+        CILQRConfig.projection); the fused kernel has its own window
+        scan and does not use this module.
     """
     if method == "hier":
         return _nearest_hier(pos, ref_line, HIER_STRIDE)
@@ -67,6 +67,6 @@ def _nearest_hier(pos, ref_line, stride: int):
 
 
 # (a windowed-argmin helper once lived here; it never gained a consumer --
-# the fused TPU kernel implements its own slab windowing
+# the fused kernel implements its own window scan
 # (ops/pallas/cilqr_kernel.py) -- and was removed rather than kept as
 # untested exported surface)

@@ -1,9 +1,9 @@
 """Riccati backward recursion + forward rollout (the solver hot loops).
 
-Reference semantics: src/cilqr_solver.cpp:383-461. TPU-native shape:
+Reference semantics: src/cilqr_solver.cpp:383-461. Shape:
 - backward pass is a ``lax.scan`` over the reversed horizon carrying
   (V_x, V_xx, dV1, dV2, fail); under ``vmap`` every small matmul becomes a
-  batched (B, 4, 4)-style einsum on the VPU;
+  batched (B, 4, 4)-style product, at HIGHEST precision;
 - the PD check on Q_uu (Eigen LLT failure, src/cilqr_solver.cpp:415-420)
   becomes branch-free data: for a 2x2 matrix PD <=> Quu[0,0] > 0 and
   det(Quu) > 0; failures latch a flag instead of early-returning, and the
@@ -16,12 +16,16 @@ src/cilqr_solver.cpp:79-80 and never written), so Q_ux has no cost term.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple
 
 import jax.numpy as jnp
 from jax import lax
 
 from ilqr_tpu.models.bicycle import kinematic_propagate
+
+# f32 means f32: a GPU would otherwise run these small products in TF32
+_mm = partial(jnp.matmul, precision=lax.Precision.HIGHEST)
 
 
 class BackwardResult(NamedTuple):
@@ -43,12 +47,12 @@ def backward_pass(A, B, l_x, l_u, l_xx, l_uu, lamb) -> BackwardResult:
     def step(carry, inp):
         V_x, V_xx, dV1, dV2, fail = carry
         A_i, B_i, lx_i, lu_i, lxx_i, luu_i = inp
-        Q_x = lx_i + A_i.T @ V_x
-        Q_u = lu_i + B_i.T @ V_x
-        BtV = B_i.T @ V_xx  # (2, 4)
-        Q_xx = lxx_i + A_i.T @ V_xx @ A_i
-        Q_uu = luu_i + BtV @ B_i + lamb * eye2
-        Q_ux = BtV @ A_i  # (2, 4); l_ux == 0 in the reference
+        Q_x = lx_i + _mm(A_i.T, V_x)
+        Q_u = lu_i + _mm(B_i.T, V_x)
+        BtV = _mm(B_i.T, V_xx)  # (2, 4)
+        Q_xx = lxx_i + _mm(_mm(A_i.T, V_xx), A_i)
+        Q_uu = luu_i + _mm(BtV, B_i) + lamb * eye2
+        Q_ux = _mm(BtV, A_i)  # (2, 4); l_ux == 0 in the reference
 
         det = Q_uu[0, 0] * Q_uu[1, 1] - Q_uu[0, 1] * Q_uu[1, 0]
         pd = (Q_uu[0, 0] > 0) & (det > 0)
@@ -60,14 +64,14 @@ def backward_pass(A, B, l_x, l_u, l_xx, l_uu, lamb) -> BackwardResult:
             / det_safe
         )
 
-        d_i = -(Q_uu_inv @ Q_u)
-        K_i = -(Q_uu_inv @ Q_ux)
+        d_i = -_mm(Q_uu_inv, Q_u)
+        K_i = -_mm(Q_uu_inv, Q_ux)
 
-        KtQuu = K_i.T @ Q_uu
-        V_x_n = Q_x + KtQuu @ d_i + K_i.T @ Q_u + Q_ux.T @ d_i
-        V_xx_n = Q_xx + KtQuu @ K_i + K_i.T @ Q_ux + Q_ux.T @ K_i
-        dV1_n = dV1 + 0.5 * d_i @ (Q_uu @ d_i)
-        dV2_n = dV2 + d_i @ Q_u
+        KtQuu = _mm(K_i.T, Q_uu)
+        V_x_n = Q_x + _mm(KtQuu, d_i) + _mm(K_i.T, Q_u) + _mm(Q_ux.T, d_i)
+        V_xx_n = Q_xx + _mm(KtQuu, K_i) + _mm(K_i.T, Q_ux) + _mm(Q_ux.T, K_i)
+        dV1_n = dV1 + 0.5 * _mm(d_i, _mm(Q_uu, d_i))
+        dV2_n = dV2 + _mm(d_i, Q_u)
         fail_n = fail | ~pd
         return (V_x_n, V_xx_n, dV1_n, dV2_n, fail_n), (d_i, K_i)
 
@@ -91,7 +95,7 @@ def forward_pass(u, x, d, K, alpha, dt, wheelbase, ref_point: str):
 
     def step(new_x_i, inp):
         u_i, x_i, d_i, K_i = inp
-        new_u_i = u_i + K_i @ (new_x_i - x_i) + alpha * d_i
+        new_u_i = u_i + _mm(K_i, new_x_i - x_i) + alpha * d_i
         new_x_next = kinematic_propagate(new_x_i, new_u_i, dt, wheelbase, ref_point)
         return new_x_next, (new_u_i, new_x_next)
 

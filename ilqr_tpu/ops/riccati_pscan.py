@@ -1,13 +1,11 @@
 """Parallel-in-time Riccati backward pass via ``lax.associative_scan``.
 
-STATUS: EXPERIMENTAL / measured-never-faster (round-5 decision). On one
-v5e chip the sequential scan wins or ties at EVERY measured (batch, N):
-0.08-0.19x at batch >= 8, and only parity (0.95-1.01x) in the single
-best case batch=1, N=2048 (docs/PERFORMANCE.md "Long-horizon",
-tools/results/bench_long_horizon_b{1,8}.log). Use riccati_impl="scan"
-(the default); this module remains as the validated design study for
-true parallel-in-time scaling and for hardware where the tradeoff
-differs.
+STATUS: EXPERIMENTAL. It has never measured faster than the sequential
+scan at batch >= 8, where the batch axis already fills the device; at
+batch 1 with long horizons it has not been measured on a GPU yet
+(tools/bench_long_horizon.py). Use riccati_impl="scan" (the default); this
+module remains as the validated design study for parallel-in-time
+scaling.
 
 The sequential backward recursion (ops/riccati.py) has O(N) depth -- fine at
 the reference's N=30, but the wrong scaling story for long horizons. This

@@ -2,8 +2,8 @@
 
 The workload's only parallelism axis is the scenario batch (SURVEY.md
 section 2 table): a 1-D ``data`` mesh row-partitions the batch across every
-chip; collectives (stats allreduce) ride ICI within a slice and DCN across
-slices automatically under ``jax.distributed``.
+device. The cards of one host reach each other all to all (NVLink), so the
+mesh follows the algorithm alone; the only collective is the stats psum.
 """
 
 from __future__ import annotations
@@ -33,9 +33,10 @@ def initialize_distributed(coordinator_address: Optional[str] = None,
                            process_id: Optional[int] = None) -> None:
     """Multi-host bring-up (one call per host before any jax op).
 
-    Thin wrapper over ``jax.distributed.initialize``; on TPU pods the
-    arguments are auto-detected from the environment, so calling with no
-    arguments is the normal path.
+    Thin wrapper over ``jax.distributed.initialize``. Pass the coordinator
+    address (``host:port``), the process count and this process's id;
+    without them JAX auto-detects a cluster only where a scheduler
+    announces one.
     """
     kwargs = {}
     if coordinator_address is not None:

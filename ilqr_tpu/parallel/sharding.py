@@ -1,6 +1,6 @@
 """Batch sharding + collective stat aggregation.
 
-TPU-native realization of the "distributed" column of SURVEY.md section 2:
+The "distributed" column of SURVEY.md section 2:
 - the scenario batch is row-partitioned over the mesh's ``data`` axis
   (embarrassingly parallel -- zero cross-device traffic during solves);
 - convergence / throughput statistics are reduced with ``psum`` inside the
@@ -72,28 +72,23 @@ def aggregate_stats(stats: SolveStats, axis_name: Optional[str] = None):
 
 
 def sharded_kernel_solve_fn(mesh: Mesh, cfg: CILQRConfig, *,
-                            window: int = 512,
-                            straggler_cap=0,
-                            proj_rows_per_step: int = 0,
-                            groups: int = 1,
-                            interpret: bool = False,
                             axis_name: str = DATA_AXIS,
                             with_stats_psum: bool = True,
-                            with_alm_io: bool = False):
-    """Mesh-sharded batched solve on the *fused Pallas kernel* path.
+                            with_alm_io: bool = False, **kernel_kw):
+    """Mesh-sharded batched solve on the *fused kernel* path.
 
     Same contract as :func:`sharded_solve_fn` --
     ``fn(w, x0_batch, scenario_batch) -> (u, x, stats, summary)`` with the
     batch row-partitioned over ``axis_name`` -- but each shard runs
     :func:`ilqr_tpu.ops.pallas.cilqr_kernel.cilqr_solve_pallas` on its local
-    rows instead of the XLA-composed solver (~60x faster per chip,
-    docs/PERFORMANCE.md). The workload is embarrassingly parallel, so the
-    kernel composes with ``shard_map`` with zero cross-device traffic in the
-    hot path: batch padding to lane multiples and the straggler-compaction
-    argsort both stay shard-local; only the O(bytes) stats summary is
-    psum'd. Kernel knobs (``window``, ``straggler_cap``,
-    ``proj_rows_per_step``, ``groups``, ``interpret``) pass through
-    unchanged; per-shard semantics are exactly the single-device kernel's.
+    rows instead of the XLA-composed solver. The workload is
+    embarrassingly parallel, so the kernel composes with ``shard_map`` with
+    zero cross-device traffic in the hot path: batch padding to block
+    multiples and the straggler-compaction argsort both stay shard-local;
+    only the O(bytes) stats summary is psum'd. Kernel options
+    (``kernel_kw``: window, straggler_cap, proj_rows_per_step, ls_chunk,
+    proj_dot, block, interpret, ...) pass through unchanged; per-shard
+    semantics are exactly the single-device kernel's.
 
     ``with_alm_io`` (ALM configs): the returned fn takes two extra
     row-partitioned args ``(alm_mu0 (B, N, C), alm_rho0 (B,))`` and returns
@@ -102,9 +97,7 @@ def sharded_kernel_solve_fn(mesh: Mesh, cfg: CILQRConfig, *,
     """
     from ilqr_tpu.ops.pallas.cilqr_kernel import cilqr_solve_pallas
 
-    kw = dict(window=window, interpret=interpret,
-              straggler_cap=straggler_cap,
-              proj_rows_per_step=proj_rows_per_step, groups=groups)
+    kw = kernel_kw
 
     if with_alm_io:
         assert cfg.solve_type == "alm", "with_alm_io requires an ALM config"
@@ -146,11 +139,8 @@ def sharded_kernel_solve_fn(mesh: Mesh, cfg: CILQRConfig, *,
 def run_mpc_chunked_sharded(mesh: Mesh, cfg: CILQRConfig, w, x0_b,
                             ref_line_b, ref_velo_b, obs_full_b,
                             road_borders_b, *, ticks: int, chunk: int = 10,
-                            window: int = 512,
-                            straggler_cap=0, proj_rows_per_step: int = 0,
-                            interpret: bool = False,
                             straggler_cap_warm=None,
-                            axis_name: str = DATA_AXIS):
+                            axis_name: str = DATA_AXIS, **kernel_kw):
     """Reference-length MPC episodes, batch row-partitioned over the mesh.
 
     The mesh analogue of :func:`ilqr_tpu.sim.mpc.run_mpc_kernel_chunked`
@@ -161,7 +151,8 @@ def run_mpc_chunked_sharded(mesh: Mesh, cfg: CILQRConfig, w, x0_b,
     start, ALM duals) staying device-resident and row-partitioned between
     calls. Episodes are embarrassingly parallel, so the hot path has zero
     cross-device traffic; scaling is linear in mesh size like
-    :func:`sharded_kernel_solve_fn`.
+    :func:`sharded_kernel_solve_fn`. ``kernel_kw`` are the kernel options
+    of :func:`ilqr_tpu.sim.mpc.run_mpc_kernel_scan`.
     """
     from ilqr_tpu.sim.mpc import run_mpc_kernel_scan
 
@@ -172,11 +163,9 @@ def run_mpc_chunked_sharded(mesh: Mesh, cfg: CILQRConfig, w, x0_b,
 
     def make_chunk_fn(cold_first_tick: bool):
         episode = partial(
-            run_mpc_kernel_scan, cfg, ticks=chunk, window=window,
-            interpret=interpret, straggler_cap=straggler_cap,
-            straggler_cap_warm=straggler_cap_warm,
-            proj_rows_per_step=proj_rows_per_step, with_carry=True,
-            cold_first_tick=cold_first_tick)
+            run_mpc_kernel_scan, cfg, ticks=chunk,
+            straggler_cap_warm=straggler_cap_warm, with_carry=True,
+            cold_first_tick=cold_first_tick, **kernel_kw)
 
         @partial(
             jax.shard_map,

@@ -4,7 +4,7 @@ Reference loop: src/motion_planning.cpp:180-270 -- each tick solves CILQR on
 the obstacle-prediction window starting at that tick and applies the second
 planned state (``new_x.row(1)``, :197) as the next ego state.
 
-Four drivers:
+Five drivers:
 - :func:`run_mpc` -- host loop, one jitted solve per tick. Flexible
   (visualization hooks, per-tick logging); used by the parity suite and the
   demo app.
@@ -13,12 +13,13 @@ Four drivers:
   No host round-trip per tick, so "solves/sec" benchmarks are honest and
   episodes batch under ``vmap`` (SURVEY.md section 7 "Warm start & MPC
   statefulness").
-- :func:`run_mpc_kernel` -- host loop over the fused Pallas kernel
-  (batched scenarios, warm start + ALM duals carried host-side).
+- :func:`run_mpc_kernel` -- host loop over the fused kernel (batched
+  scenarios, warm start + ALM duals carried host-side).
 - :func:`run_mpc_kernel_scan` -- whole episode on the fused kernel in one
-  compiled program (straight-line chained ticks); the benchmark path.
-  Verified ~2% faster than the host loop plus independent of per-tick
-  dispatch latency (docs/PERFORMANCE.md "MPC episodes").
+  compiled program (straight-line chained ticks), independent of per-tick
+  dispatch latency.
+- :func:`run_mpc_kernel_chunked` -- reference-length episodes as repeated
+  dispatches of one compiled chunk program; the benchmark path.
 """
 
 from __future__ import annotations
@@ -33,6 +34,16 @@ from jax import lax
 
 from ilqr_tpu.solvers.cilqr import solve
 from ilqr_tpu.types import CILQRCarry, CILQRConfig, CILQRWeights, Scenario
+
+
+def _kernel_kw(w_back, ls_chunk, proj_dot, block):
+    """Kernel options a driver forwards; None keeps the kernel's default."""
+    kw = dict(ls_chunk=ls_chunk, proj_dot=proj_dot)
+    if w_back is not None:
+        kw["w_back"] = w_back
+    if block is not None:
+        kw["block"] = block
+    return kw
 
 
 def run_mpc(cfg: CILQRConfig, w: CILQRWeights, setup, dtype=jnp.float64,
@@ -101,7 +112,8 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
                    ref_velo_b, obs_full_b, road_borders_b, ticks: int,
                    window: int = 512, interpret: bool = False,
                    straggler_cap: int = 0, proj_rows_per_step: int = 0,
-                   groups: int = 1, w_back: Optional[int] = None):
+                   w_back: Optional[int] = None, ls_chunk: int = 0,
+                   proj_dot: bool = False, block: Optional[int] = None):
     """Batched receding-horizon episodes on the fused Pallas kernel.
 
     x0_b (B, 4); ref_line_b (B, P, 4); obs_full_b (B, M, T, 3) with
@@ -118,9 +130,7 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
     """
     from ilqr_tpu.ops.pallas.cilqr_kernel import cilqr_solve_pallas
 
-    # None = the kernel's default back-window (W_BACK); an int overrides
-    # (w_back=24 validated on all four scenarios, docs/PERFORMANCE.md)
-    kb = {} if w_back is None else {"w_back": w_back}
+    kb = _kernel_kw(w_back, ls_chunk, proj_dot, block)
     alm = cfg.solve_type == "alm"
     ego = jnp.asarray(x0_b, jnp.float32)
     u_prev = None
@@ -144,13 +154,13 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
             u, x, st, (alm_mu, alm_rho) = cilqr_solve_pallas(
                 cfg, w, ego, scenario, window=window, interpret=interpret,
                 u_init=u_init, straggler_cap=straggler_cap,
-                proj_rows_per_step=proj_rows_per_step, groups=groups,
+                proj_rows_per_step=proj_rows_per_step,
                 alm_mu0=mu_in, alm_rho0=rho_in, return_alm=True, **kb)
         else:
             u, x, st = cilqr_solve_pallas(
                 cfg, w, ego, scenario, window=window, interpret=interpret,
                 u_init=u_init, straggler_cap=straggler_cap,
-                proj_rows_per_step=proj_rows_per_step, groups=groups, **kb)
+                proj_rows_per_step=proj_rows_per_step, **kb)
         ego = x[:, 1]
         u_prev = u
         egos.append(ego)
@@ -163,17 +173,19 @@ def run_mpc_kernel(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
 @functools.partial(
     jax.jit,
     static_argnames=("cfg", "ticks", "window", "interpret", "straggler_cap",
-                     "proj_rows_per_step", "groups", "unroll", "with_carry",
-                     "straggler_cap_warm", "cold_first_tick", "w_back"),
+                     "proj_rows_per_step", "unroll", "with_carry",
+                     "straggler_cap_warm", "cold_first_tick", "w_back",
+                     "ls_chunk", "proj_dot", "block"),
 )
 def run_mpc_kernel_scan(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
                         ref_velo_b, obs_full_b, road_borders_b, ticks: int,
                         window: int = 512, interpret: bool = False,
                         straggler_cap: int = 0, proj_rows_per_step: int = 0,
-                        groups: int = 1, unroll: bool = True,
+                        unroll: bool = True,
                         t0=0, carry_in=None, with_carry: bool = False,
                         straggler_cap_warm=None, cold_first_tick: bool = True,
-                        w_back: Optional[int] = None):
+                        w_back: Optional[int] = None, ls_chunk: int = 0,
+                        proj_dot: bool = False, block: Optional[int] = None):
     """Whole-episode batched MPC with the fused kernel in ONE compiled
     program: a ``lax.scan`` over ticks whose body is the Pallas solve.
 
@@ -195,8 +207,8 @@ def run_mpc_kernel_scan(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
     ``with_carry`` additionally returns the final carry.
 
     ``straggler_cap_warm``: straggler schedule for warm ticks. Warm-started
-    solves converge in ~5-6 mean iterations vs ~12 cold (docs/
-    PERFORMANCE.md "MPC episodes"), so compacting earlier pays; only the
+    solves converge in about half the iterations of cold ones, so
+    compacting earlier pays; only the
     episode's first tick (cold unless ``cold_first_tick`` is False --
     chunk continuations pass False) keeps ``straggler_cap``. None = one
     schedule everywhere. Requires ``unroll`` (per-tick static knobs need
@@ -208,7 +220,7 @@ def run_mpc_kernel_scan(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
     """
     from ilqr_tpu.ops.pallas.cilqr_kernel import cilqr_solve_pallas
 
-    kb = {} if w_back is None else {"w_back": w_back}
+    kb = _kernel_kw(w_back, ls_chunk, proj_dot, block)
     alm = cfg.solve_type == "alm"
     carry_duals = alm and cfg.use_last_solution
     x0_b = jnp.asarray(x0_b, jnp.float32)
@@ -231,7 +243,7 @@ def run_mpc_kernel_scan(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
             u, x, st, (mu, rho) = cilqr_solve_pallas(
                 cfg, w, ego, scenario, window=window, interpret=interpret,
                 u_init=u_init, straggler_cap=cap,
-                proj_rows_per_step=proj_rows_per_step, groups=groups,
+                proj_rows_per_step=proj_rows_per_step,
                 alm_mu0=mu if carry_duals else None,
                 alm_rho0=rho if carry_duals else None, return_alm=True,
                 **kb)
@@ -239,7 +251,7 @@ def run_mpc_kernel_scan(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
             u, x, st = cilqr_solve_pallas(
                 cfg, w, ego, scenario, window=window, interpret=interpret,
                 u_init=u_init, straggler_cap=cap,
-                proj_rows_per_step=proj_rows_per_step, groups=groups, **kb)
+                proj_rows_per_step=proj_rows_per_step, **kb)
         new_ego = x[:, 1]
         return (new_ego, u, mu, rho), (new_ego, u, st)
 
@@ -251,16 +263,10 @@ def run_mpc_kernel_scan(cfg: CILQRConfig, w: CILQRWeights, x0_b, ref_line_b,
         u_prev0, mu0, rho0 = carry_in
     carry0 = (x0_b, u_prev0, mu0, rho0)
     # ``unroll``: emit the ticks as straight-line calls instead of a
-    # lax.scan loop. On v5e a pallas_call looped by lax.scan returns wrong
-    # results from the second iteration on (ego advance collapses 0.8 ->
-    # 0.204 m/tick; bitwise-deterministic, interpret-exact -- same XLA
-    # program-shape bug family as docs/PERFORMANCE.md "groups=8 +
-    # straggler compaction"), while the identical calls chained
-    # straight-line are proven bitwise-correct on chip
-    # (tools/results/g1_resume_tpu.log). Still ONE compiled program, no
-    # per-tick dispatch; the Mosaic kernel compiles once either way. The
-    # straight-line chain is an explicit Python loop (not scan unroll=n)
-    # so warm ticks can use their own static straggler schedule.
+    # lax.scan loop -- still ONE compiled program with no per-tick
+    # dispatch. The straight-line chain is an explicit Python loop (not
+    # scan unroll=n) so warm ticks can use their own static straggler
+    # schedule; unroll=False (one schedule) is the scan form.
     if unroll:
         t0 = jnp.asarray(t0, jnp.int32)
         warm_cap = (straggler_cap if straggler_cap_warm is None
@@ -294,25 +300,25 @@ def run_mpc_kernel_chunked(cfg: CILQRConfig, w: CILQRWeights, x0_b,
                            road_borders_b, ticks: int, chunk: int = 10,
                            window: int = 512, interpret: bool = False,
                            straggler_cap: int = 0,
-                           proj_rows_per_step: int = 0, groups: int = 1,
+                           proj_rows_per_step: int = 0,
                            straggler_cap_warm=None,
-                           w_back: Optional[int] = None):
+                           w_back: Optional[int] = None, ls_chunk: int = 0,
+                           proj_dot: bool = False,
+                           block: Optional[int] = None):
     """Reference-length episodes (120-150 ticks, max_simulation_time in the
     shipped yamls / src/motion_planning.cpp:180) on the fused-kernel path.
 
-    The single-program driver must unroll its tick loop (the lax.scan
-    miscompile, see :func:`run_mpc_kernel_scan`), and a 120-tick unrolled
-    program exceeds the remote compiler's budget (one 10-tick chunk is
-    ~40 kernel calls already). This driver splits the episode into
-    fixed-size chunks of ``chunk`` ticks: ONE compiled chunk program
+    A 120-tick straight-line program would hold hundreds of kernel calls
+    (one 10-tick chunk is ~40 already) and take long to compile. This
+    driver splits the episode into fixed-size chunks of ``chunk`` ticks:
+    ONE compiled chunk program
     (identical shape every call -- the tick offset ``t0`` is a traced
     scalar) is dispatched ceil(ticks/chunk) times, with the cross-tick
     carry (ego, shifted-u warm start, ALM duals) staying device-resident
     between calls. Host cost is one dispatch per chunk instead of per
     tick; results are tick-for-tick identical to :func:`run_mpc_kernel`
     (tested bitwise in tests/test_pallas_kernel.py::
-    test_kernel_episode_chunked_matches_scan and on hardware in
-    tools/results/chunked_check_tpu.log).
+    test_kernel_episode_chunked_matches_scan).
 
     ``ticks`` must be a multiple of ``chunk`` (pad the episode or pick a
     divisor; the shipped scenarios' 120/150 ticks both divide by 10).
@@ -338,11 +344,11 @@ def run_mpc_kernel_chunked(cfg: CILQRConfig, w: CILQRWeights, x0_b,
             cfg, w, ego, ref_line_b, ref_velo_b, obs_full_b, road_borders_b,
             ticks=chunk, window=window, interpret=interpret,
             straggler_cap=straggler_cap,
-            proj_rows_per_step=proj_rows_per_step, groups=groups,
+            proj_rows_per_step=proj_rows_per_step,
             t0=jnp.asarray(c * chunk, jnp.int32), carry_in=carry,
             with_carry=True, straggler_cap_warm=straggler_cap_warm,
             cold_first_tick=(c == 0 or straggler_cap_warm is None),
-            w_back=w_back)
+            w_back=w_back, ls_chunk=ls_chunk, proj_dot=proj_dot, block=block)
         ego = ego_c[-1]
         egos.append(ego_c[1:])
         us.append(us_c)

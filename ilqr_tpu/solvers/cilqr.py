@@ -21,7 +21,7 @@ search with the reference's acceptance rule, warm starting, and the
   on an unchanged trajectory, so recomputing (as we do, branch-free) is
   semantically equivalent.
 
-TPU-first shape: the whole solve is one pure function of pytrees built from
+Shape: the whole solve is one pure function of pytrees built from
 ``lax.while_loop``/``lax.scan``; per-scenario control-flow divergence is
 handled by JAX's batched-while masking under ``vmap``, and batches shard
 over a device mesh in ``ilqr_tpu.parallel``.
@@ -114,7 +114,7 @@ def _line_search(cfg: CILQRConfig, w: CILQRWeights, u, x, d, K, ori_cost,
     Identical results to the sequential walk -- each trial is a pure
     function of (u, x, d, K, alpha) and the reference stops at the first
     hit -- but the sequential depth drops from (#alphas x N) propagation
-    steps to N, which is what the TPU lockstep batch actually pays.
+    steps to N, which is what the lockstep batch actually pays.
     """
     dtype = x.dtype
     schedule = _alpha_schedule(cfg)

@@ -30,7 +30,6 @@ from typing import Any, NamedTuple
 import jax
 import jax.numpy as jnp
 from jax import lax
-from flax import struct
 
 from ilqr_tpu.models.bicycle import (
     GRAVITY_CENTER,
@@ -39,6 +38,7 @@ from ilqr_tpu.models.bicycle import (
     kinematic_jacobians,
     rollout,
 )
+from ilqr_tpu.types import pytree_dataclass
 from ilqr_tpu.ops.constraints import (
     ellipsoid_safety_margin,
     ellipsoid_safety_margin_grad,
@@ -46,28 +46,28 @@ from ilqr_tpu.ops.constraints import (
 )
 
 
-@struct.dataclass
+@pytree_dataclass
 class DemoCILQRParams:
     """Tunables of the demo planner (defaults = the script's constants,
     scripts/2-cilqr-motionplanning.py:44-80)."""
 
-    dt: Any = struct.field(default=0.1)
-    wheelbase: Any = struct.field(default=3.6)
-    width: Any = struct.field(default=2.0)
+    dt: Any = 0.1
+    wheelbase: Any = 3.6
+    width: Any = 2.0
     state_weight: Any = None  # (4,) diag
     ctrl_weight: Any = None  # (2,) diag
-    exp_q1: Any = struct.field(default=5.5)
-    exp_q2: Any = struct.field(default=5.75)
-    init_lamb: Any = struct.field(default=20.0)
-    lamb_decay: Any = struct.field(default=0.7)
-    lamb_amplify: Any = struct.field(default=2.0)
-    max_lamb: Any = struct.field(default=10000.0)
-    tol: Any = struct.field(default=1e-3)
-    velo_max: Any = struct.field(default=10.0)
-    velo_min: Any = struct.field(default=0.0)
-    acc_max: Any = struct.field(default=2.0)
-    acc_min: Any = struct.field(default=-2.0)
-    stl_lim: Any = struct.field(default=1.57)
+    exp_q1: Any = 5.5
+    exp_q2: Any = 5.75
+    init_lamb: Any = 20.0
+    lamb_decay: Any = 0.7
+    lamb_amplify: Any = 2.0
+    max_lamb: Any = 10000.0
+    tol: Any = 1e-3
+    velo_max: Any = 10.0
+    velo_min: Any = 0.0
+    acc_max: Any = 2.0
+    acc_min: Any = -2.0
+    stl_lim: Any = 1.57
 
     @classmethod
     def default(cls, dtype=jnp.float64):

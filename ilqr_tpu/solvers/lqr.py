@@ -4,7 +4,7 @@ Reference: scripts/0-lqr-demo.py -- DARE via fixed-point iteration
 (:5-20), gain K* = (R + B^T P B)^{-1} B^T P A (:59), then open- vs
 closed-loop rollouts of an unstable LTI system (:31-70).
 
-TPU-first: rollouts are ``lax.scan``; everything vmaps over a batch of
+Batched-first: rollouts are ``lax.scan``; everything vmaps over a batch of
 (A, B, Q, R, x0) problems, so sweeping controller tunings is one compiled
 program.
 """

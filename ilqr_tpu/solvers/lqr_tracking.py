@@ -7,7 +7,7 @@ feedforward steering from path curvature, steering low-pass filter,
 speed profile with stop/reverse handling (:311-337), and the rear-axle
 bicycle update in tan form (:134-140).
 
-TPU-first: the controller tick is pure; the whole simulation is a bounded
+Batched-first: the controller tick is pure; the whole simulation is a bounded
 ``lax.scan`` with a goal mask (no data-dependent trip count inside jit) and
 vmaps over batches of (course x gains x start states).
 """

@@ -4,7 +4,7 @@ Design stance (SURVEY.md section 7): one pure-functional solver core; all
 state (trajectory, lambda, ALM duals, status, warm-start carry) is an
 explicit pytree, so a batch of scenarios is just these structures with a
 leading axis (``vmap``), and checkpoint/resume is a free side effect of the
-state being data (orbax-serializable).
+state being data.
 
 Two kinds of parameters:
 - ``CILQRConfig``: *static* hyperparameters (shapes, modes) -- hashable,
@@ -19,10 +19,20 @@ from __future__ import annotations
 import dataclasses
 from typing import Any
 
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 from ilqr_tpu.config import GlobalConfig
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree whose fields are all data
+    leaves, with a ``replace(**changes)`` method."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(
+        cls, data_fields=[f.name for f in dataclasses.fields(cls)],
+        meta_fields=[])
 
 
 class SolveStatus:
@@ -58,9 +68,8 @@ class CILQRConfig:
     line_search_width: int = 4
     # backward-pass implementation: "scan" = sequential O(N)-depth Riccati
     # (exact reference semantics); "pscan" = EXPERIMENTAL parallel-in-time
-    # lax.associative_scan -- measured slower or tied at every (batch, N)
-    # on v5e (docs/PERFORMANCE.md "Long-horizon"; lambda regularizes gains
-    # only -- see ops/riccati_pscan.py). Keep "scan".
+    # lax.associative_scan -- never measured faster at batch >= 8 (lambda
+    # regularizes gains only -- see ops/riccati_pscan.py). Keep "scan".
     riccati_impl: str = "scan"
 
     @property
@@ -84,7 +93,7 @@ class CILQRConfig:
         return cls(**kw)
 
 
-@struct.dataclass
+@pytree_dataclass
 class CILQRWeights:
     """Traced solver scalars (a pytree; vmap-able for yaml-param sweeps).
 
@@ -178,7 +187,7 @@ class CILQRWeights:
         return cls(**kw)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scenario:
     """Per-scenario device data (pad-and-stack for batching).
 
@@ -194,7 +203,7 @@ class Scenario:
     road_borders: Any
 
 
-@struct.dataclass
+@pytree_dataclass
 class CILQRCarry:
     """Cross-solve MPC state: warm start + ALM duals
     (reference src/cilqr_solver.cpp:88-102, 144)."""
@@ -215,7 +224,7 @@ class CILQRCarry:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class SolveStats:
     """Per-solve telemetry, kept *as data* so it batches and psums
     (SURVEY.md section 5 'failure detection')."""

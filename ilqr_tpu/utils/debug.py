@@ -1,7 +1,7 @@
 """Numerical debugging aids.
 
 The reference has no sanitizers (SURVEY.md section 5 "Race detection"); the
-TPU-native equivalents are NaN trapping and cross-sharding determinism
+device-side equivalents are NaN trapping and cross-sharding determinism
 checks -- the failure modes a data-parallel numerical code actually has.
 """
 

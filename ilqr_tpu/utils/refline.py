@@ -8,7 +8,7 @@ Parity targets:
 - ``RoutingLine``: a time-indexed (x, y, yaw) trajectory for agents with
   slicing (reference src/utils.cpp:37-58, include/utils.hpp:53-68).
 
-TPU-first design: both are host-side constructions (static per scenario)
+Design: both are host-side constructions (static per scenario)
 that export padded, stacked device arrays; all *device* consumers (nearest
 point projection, obstacle windows) operate on those arrays.
 """

@@ -5,7 +5,7 @@ Behavioural parity with the reference's ``CubicSpline``/``CubicSpline2D``
 natural boundary conditions (second derivative zero at both ends), arc-length
 parameterized 2-D variant with yaw/curvature, and a dense course sampler.
 
-Design differences (TPU-first, not a translation):
+Design differences (batched-first, not a translation):
 
 - the tridiagonal natural-spline system is solved with the O(n) Thomas
   algorithm instead of the reference's dense ``colPivHouseholderQr``

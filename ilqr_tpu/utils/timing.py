@@ -3,7 +3,7 @@
 Reference has two ``TicToc`` variants (include/utils.hpp:77-91 returning
 seconds, include/utils.hpp:234-248 returning milliseconds). Here one class
 covers both, plus JAX-aware device timing that brackets with
-``block_until_ready`` so TPU async dispatch doesn't lie to the timer.
+``block_until_ready`` so asynchronous dispatch doesn't lie to the timer.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def time_jax(fn: Callable, *args, warmup: int = 1, iters: int = 10, **kwargs) ->
 
 @contextlib.contextmanager
 def profile_trace(logdir: str):
-    """jax.profiler trace context (TPU equivalent of the reference's
+    """jax.profiler trace context (device-side equivalent of the reference's
     per-solve TicToc logging, SURVEY.md section 5)."""
     jax.profiler.start_trace(logdir)
     try:

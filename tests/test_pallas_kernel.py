@@ -1,9 +1,9 @@
-"""Fused Pallas CILQR kernel vs the XLA solver (interpret mode on CPU).
+"""Fused Triton CILQR kernel vs the XLA solver (Pallas interpreter on CPU).
 
-Full-size interpret runs are prohibitively slow on CPU, so the parity check
-runs the same kernel code at a reduced horizon; the kernel is
-shape-polymorphic over N, and the TPU-scale behavior is exercised by
-bench.py on hardware.
+Full-size interpreter runs are slow on CPU, so the parity checks run the
+same kernel code at a reduced horizon (N=6) and a small block (8 scenarios
+per program); the kernel is shape-polymorphic over N and the block, and the
+full-size behavior on the card is checked by chip_smoke.py.
 """
 
 import dataclasses
@@ -22,6 +22,9 @@ from ilqr_tpu.types import CILQRConfig, CILQRWeights
 
 from tests.conftest import CONFIG_DIR
 
+# interpreter + a small block keep the CPU cost of each test low
+KI = dict(interpret=True, block=8)
+
 
 @pytest.fixture(scope="module")
 def small_problem():
@@ -39,7 +42,7 @@ def small_problem():
 def test_kernel_matches_xla_solver(small_problem):
     cfg, w, x0_b, scen_b = small_problem
     u_k, x_k, stats_k = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                           interpret=True)
+                                           **KI)
     f = jax.jit(jax.vmap(solve, in_axes=(None, None, 0, 0, None)),
                 static_argnums=0)
     u_r, x_r, stats_r, _ = f(cfg, w, x0_b, scen_b, None)
@@ -63,7 +66,7 @@ def test_kernel_matches_xla_gravity_center_many_obstacles():
     x0_b = jnp.asarray(perturbed_initial_states(st.ego_x0, B, seed=1), jnp.float32)
     scen_b = jax.tree.map(lambda a: jnp.stack([a] * B), scenario)
     u_k, x_k, stats_k = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                           interpret=True)
+                                           **KI)
     f = jax.jit(jax.vmap(solve, in_axes=(None, None, 0, 0, None)),
                 static_argnums=0)
     u_r, x_r, stats_r, _ = f(cfg, w, x0_b, scen_b, None)
@@ -89,7 +92,7 @@ def test_kernel_matches_xla_remaining_scenarios(name, max_iter, B):
                        jnp.float32)
     scen_b = jax.tree.map(lambda a: jnp.stack([a] * B), scenario)
     u_k, x_k, stats_k = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                           interpret=True)
+                                           **KI)
     f = jax.jit(jax.vmap(solve, in_axes=(None, None, 0, 0, None)),
                 static_argnums=0)
     u_r, x_r, stats_r, _ = f(cfg, w, x0_b, scen_b, None)
@@ -104,7 +107,7 @@ def test_kernel_alm_mode_matches_xla(small_problem):
     cfg, w, x0_b, scen_b = small_problem
     cfg_alm = dataclasses.replace(cfg, solve_type="alm")
     u_k, x_k, stats_k = cilqr_solve_pallas(cfg_alm, w, x0_b, scen_b,
-                                           window=256, interpret=True)
+                                           window=256, **KI)
     f = jax.jit(jax.vmap(solve, in_axes=(None, None, 0, 0, None)),
                 static_argnums=0)
     u_r, x_r, stats_r, _ = f(cfg_alm, w, x0_b, scen_b, None)
@@ -125,11 +128,11 @@ def test_kernel_alm_warm_start_matches_xla(small_problem):
                                  use_last_solution=True)
     # first (cold) solve, capturing the final duals
     u1, _, _, (mu1, rho1) = cilqr_solve_pallas(
-        cfg_ws, w, x0_b, scen_b, window=256, interpret=True,
+        cfg_ws, w, x0_b, scen_b, window=256, **KI,
         return_alm=True)
     shifted = jnp.concatenate([u1[:, 1:], u1[:, -1:]], axis=1)
     u2, x2, st2 = cilqr_solve_pallas(
-        cfg_ws, w, x0_b, scen_b, window=256, interpret=True,
+        cfg_ws, w, x0_b, scen_b, window=256, **KI,
         u_init=shifted, alm_mu0=mu1, alm_rho0=rho1)
     # XLA path with the equivalent carry
     from ilqr_tpu.types import CILQRCarry
@@ -155,7 +158,7 @@ def test_kernel_alm_carry_matches_xla_carry(small_problem):
     cfg, w, x0_b, scen_b = small_problem
     cfg_alm = dataclasses.replace(cfg, solve_type="alm")
     _, _, _, (mu_k, rho_k) = cilqr_solve_pallas(
-        cfg_alm, w, x0_b, scen_b, window=256, interpret=True,
+        cfg_alm, w, x0_b, scen_b, window=256, **KI,
         return_alm=True)
     f = jax.jit(jax.vmap(solve, in_axes=(None, None, 0, 0, None)),
                 static_argnums=0)
@@ -173,10 +176,10 @@ def test_kernel_warm_start_matches_xla(small_problem):
     cfg_ws = dataclasses.replace(cfg, use_last_solution=True)
     # first (cold) solve
     u1, _, _ = cilqr_solve_pallas(cfg_ws, w, x0_b, scen_b, window=256,
-                                  interpret=True)
+                                  **KI)
     shifted = jnp.concatenate([u1[:, 1:], u1[:, -1:]], axis=1)
     u2, x2, st2 = cilqr_solve_pallas(cfg_ws, w, x0_b, scen_b, window=256,
-                                     interpret=True, u_init=shifted)
+                                     **KI, u_init=shifted)
     # XLA path with an explicit carry reproducing the same warm start
     from ilqr_tpu.types import CILQRCarry
     f = jax.jit(jax.vmap(solve, in_axes=(None, None, 0, 0, 0)),
@@ -206,7 +209,7 @@ def test_kernel_mpc_driver(small_problem):
                           (B, scen_b.obs_preds.shape[1], 3, 3))], axis=2)
     ego, us, stats = run_mpc_kernel(
         cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full,
-        scen_b.road_borders, ticks=3, window=256, interpret=True)
+        scen_b.road_borders, ticks=3, window=256, **KI)
     assert ego.shape == (4, B, 4)
     assert us.shape == (3, B, cfg.N, 2)
     # vehicles advance each tick
@@ -238,7 +241,7 @@ def test_kernel_mpc_alm_warm_start_matches_scan():
     obs_full_b = jnp.stack([obs_full] * B)
     ego_k, us_k, st_k = run_mpc_kernel(
         cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full_b,
-        scen_b.road_borders, ticks=ticks, window=256, interpret=True)
+        scen_b.road_borders, ticks=ticks, window=256, **KI)
     scan_b = jax.vmap(
         lambda x0, rl, rv, ob, rb: run_mpc_scan(cfg, w, x0, rl, rv, ob, rb,
                                                 ticks),
@@ -270,10 +273,10 @@ def test_kernel_episode_scan_matches_host_loop(small_problem):
                           (B, scen_b.obs_preds.shape[1], ticks, 3))], axis=2)
     ego_h, us_h, st_h = run_mpc_kernel(
         cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full,
-        scen_b.road_borders, ticks=ticks, window=256, interpret=True)
+        scen_b.road_borders, ticks=ticks, window=256, **KI)
     ego_s, us_s, st_s = run_mpc_kernel_scan(
         cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full,
-        scen_b.road_borders, ticks=ticks, window=256, interpret=True)
+        scen_b.road_borders, ticks=ticks, window=256, **KI)
     np.testing.assert_array_equal(np.asarray(ego_h), np.asarray(ego_s))
     np.testing.assert_array_equal(np.asarray(us_h), np.asarray(us_s))
     np.testing.assert_array_equal(np.asarray(st_h.iters),
@@ -303,10 +306,10 @@ def test_kernel_episode_scan_alm_warm_start():
                                         jnp.float32)] * B)
     ego_h, us_h, st_h = run_mpc_kernel(
         cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full_b,
-        scen_b.road_borders, ticks=ticks, window=256, interpret=True)
+        scen_b.road_borders, ticks=ticks, window=256, **KI)
     ego_s, us_s, st_s = run_mpc_kernel_scan(
         cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full_b,
-        scen_b.road_borders, ticks=ticks, window=256, interpret=True)
+        scen_b.road_borders, ticks=ticks, window=256, **KI)
     np.testing.assert_array_equal(np.asarray(ego_h), np.asarray(ego_s))
     np.testing.assert_array_equal(np.asarray(us_h), np.asarray(us_s))
     np.testing.assert_array_equal(np.asarray(st_h.iters),
@@ -315,9 +318,10 @@ def test_kernel_episode_scan_alm_warm_start():
 
 def test_kernel_pads_batch_to_lane_multiple(small_problem):
     cfg, w, x0_b, scen_b = small_problem
-    # B=8 is far from a multiple of 128: outputs must still be (8, ...)
+    # B=8 is far from a multiple of the block (one scenario per lane):
+    # outputs must still be (8, ...)
     u_k, x_k, stats_k = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                           interpret=True)
+                                           interpret=True, block=32)
     assert u_k.shape == (8, cfg.N, 2)
     assert x_k.shape == (8, cfg.N + 1, 4)
     assert stats_k.iters.shape == (8,)
@@ -329,10 +333,10 @@ def test_kernel_straggler_compaction_bitwise_exact(small_problem):
     (trajectory = deterministic rollout of the carried controls)."""
     cfg, w, x0_b, scen_b = small_problem
     u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True)
+                                     **KI)
     # cap below max_iter (8) so phase 2 genuinely resumes mid-solve
     u2, x2, st2 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, straggler_cap=3)
+                                     **KI, straggler_cap=3)
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
     np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
     np.testing.assert_array_equal(np.asarray(st1.iters), np.asarray(st2.iters))
@@ -349,10 +353,10 @@ def test_kernel_straggler_compaction_alm_bitwise_exact(small_problem):
     cfg, w, x0_b, scen_b = small_problem
     cfg_alm = dataclasses.replace(cfg, solve_type="alm")
     u1, x1, st1, (mu1, rho1) = cilqr_solve_pallas(
-        cfg_alm, w, x0_b, scen_b, window=256, interpret=True,
+        cfg_alm, w, x0_b, scen_b, window=256, **KI,
         return_alm=True)
     u2, x2, st2, (mu2, rho2) = cilqr_solve_pallas(
-        cfg_alm, w, x0_b, scen_b, window=256, interpret=True,
+        cfg_alm, w, x0_b, scen_b, window=256, **KI,
         straggler_cap=3, return_alm=True)
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
     np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
@@ -366,9 +370,9 @@ def test_kernel_straggler_compaction_alm_bitwise_exact(small_problem):
 def test_kernel_straggler_multiphase_bitwise_exact(small_problem):
     cfg, w, x0_b, scen_b = small_problem
     u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True)
+                                     **KI)
     u3, x3, st3 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, straggler_cap=(2, 5))
+                                     **KI, straggler_cap=(2, 5))
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u3))
     np.testing.assert_array_equal(np.asarray(x1), np.asarray(x3))
     np.testing.assert_array_equal(np.asarray(st1.iters), np.asarray(st3.iters))
@@ -385,9 +389,9 @@ def test_kernel_chunked_line_search_bitwise_exact(small_problem, chunk):
     last chunk (20 alphas pad to 24); chunk=3 an uneven width."""
     cfg, w, x0_b, scen_b = small_problem
     u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, ls_chunk=0)
+                                     **KI, ls_chunk=0)
     u2, x2, st2 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, ls_chunk=chunk)
+                                     **KI, ls_chunk=chunk)
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
     np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
     np.testing.assert_array_equal(np.asarray(st1.iters), np.asarray(st2.iters))
@@ -402,10 +406,10 @@ def test_kernel_chunked_line_search_alm_compaction_bitwise(small_problem):
     cfg, w, x0_b, scen_b = small_problem
     cfg_alm = dataclasses.replace(cfg, solve_type="alm")
     u1, x1, st1, (mu1, rho1) = cilqr_solve_pallas(
-        cfg_alm, w, x0_b, scen_b, window=256, interpret=True,
+        cfg_alm, w, x0_b, scen_b, window=256, **KI,
         straggler_cap=3, return_alm=True, ls_chunk=0)
     u2, x2, st2, (mu2, rho2) = cilqr_solve_pallas(
-        cfg_alm, w, x0_b, scen_b, window=256, interpret=True,
+        cfg_alm, w, x0_b, scen_b, window=256, **KI,
         straggler_cap=3, return_alm=True, ls_chunk=8)
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
     np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
@@ -419,38 +423,15 @@ def test_kernel_chunked_line_search_alm_compaction_bitwise(small_problem):
 def test_kernel_proj_dot_statistical(small_problem):
     """Dot-form nearest-point scoring (proj_dot) vs the squared-distance
     default: identical exact-arithmetic argmin, different f32 rounding,
-    so the criterion is solution agreement (the validate_kernel_tpu
+    so the criterion is solution agreement (the validate_kernel
     criteria at test scale), not bitwise equality. On this small problem
     no window near-tie flips, so statuses should agree exactly and
     trajectories to f32 path tolerance."""
     cfg, w, x0_b, scen_b = small_problem
     u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, proj_dot=False)
+                                     **KI, proj_dot=False)
     u2, x2, st2 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, proj_dot=True)
-    np.testing.assert_array_equal(np.asarray(st1.status),
-                                  np.asarray(st2.status))
-    np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), atol=1e-3)
-    np.testing.assert_allclose(np.asarray(st1.final_cost),
-                               np.asarray(st2.final_cost), rtol=1e-3)
-
-
-@pytest.mark.parametrize("fold_dot", [False, True],
-                         ids=["fold_alone", "fold_with_dot"])
-def test_kernel_proj_fold_statistical(small_problem, fold_dot):
-    """Pair-fold projection reduction (proj_fold) vs the min/one-hot
-    default: tournament tie-breaking can only differ on exact f32 ties,
-    which this small problem does not produce -- statuses must agree and
-    trajectories to f32 path tolerance. Exercised both alone (the
-    squared-distance s0 branch inside the fold; round-4 advisor finding)
-    and composed with proj_dot."""
-    cfg, w, x0_b, scen_b = small_problem
-    u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, proj_dot=False,
-                                     proj_fold=False)
-    u2, x2, st2 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, proj_dot=fold_dot,
-                                     proj_fold=True)
+                                     **KI, proj_dot=True)
     np.testing.assert_array_equal(np.asarray(st1.status),
                                   np.asarray(st2.status))
     np.testing.assert_allclose(np.asarray(x1), np.asarray(x2), atol=1e-3)
@@ -460,7 +441,7 @@ def test_kernel_proj_fold_statistical(small_problem, fold_dot):
 
 def test_kernel_proj_dot_translation_invariance(small_problem):
     """proj_dot must stay sound for reference lines far from the origin
-    (round-4 advisor finding): the raw dot form's f32 score error grows
+    : the raw dot form's f32 score error grows
     as |coords|^2 * eps, which at ~1e4 m coordinates is meters^2 -- the
     argmin would pick rows meters away. The centered form keeps the error
     at window scale, so on a uniformly translated scenario proj_dot must
@@ -481,9 +462,9 @@ def test_kernel_proj_dot_translation_invariance(small_problem):
     x0_t = translate(x0_b, 2)
 
     u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_t, scen_t, window=256,
-                                     interpret=True, proj_dot=False)
+                                     **KI, proj_dot=False)
     u2, x2, st2 = cilqr_solve_pallas(cfg, w, x0_t, scen_t, window=256,
-                                     interpret=True, proj_dot=True)
+                                     **KI, proj_dot=True)
     np.testing.assert_array_equal(np.asarray(st1.status),
                                   np.asarray(st2.status))
     np.testing.assert_array_equal(np.asarray(st1.iters),
@@ -496,52 +477,13 @@ def test_kernel_projection_bound_generous_is_exact(small_problem):
     bitwise identical to the full-window scan."""
     cfg, w, x0_b, scen_b = small_problem
     u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True)
+                                     **KI)
     u2, x2, st2 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=256,
-                                     interpret=True, proj_rows_per_step=23)
+                                     **KI, proj_rows_per_step=23)
     np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
     np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
     np.testing.assert_array_equal(np.asarray(st1.iters), np.asarray(st2.iters))
     np.testing.assert_array_equal(np.asarray(st1.status), np.asarray(st2.status))
-
-
-def test_kernel_groups8_matches_groups1(small_problem):
-    """Group-interleaved layout (groups=8, full-vreg per-step rows) vs the
-    replicated-row layout. Fold-based reduction orders differ in f32
-    rounding, so unconverged oscillator rows may take different paths; the
-    validation criteria are the hardware ones (tools/validate_kernel_tpu.py):
-    identical iteration counts/statuses on this margin-comfortable problem
-    and tight solution agreement on converged rows."""
-    cfg, w, x0_b, scen_b = small_problem
-    u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=64,
-                                     interpret=True)
-    u8, x8, st8 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=64,
-                                     interpret=True, groups=8)
-    np.testing.assert_array_equal(np.asarray(st1.iters), np.asarray(st8.iters))
-    np.testing.assert_array_equal(np.asarray(st1.status),
-                                  np.asarray(st8.status))
-    conv = np.asarray(st1.converged)
-    assert conv.any()
-    np.testing.assert_allclose(np.asarray(u8)[conv], np.asarray(u1)[conv],
-                               atol=1e-4)
-    np.testing.assert_allclose(np.asarray(x8)[conv], np.asarray(x1)[conv],
-                               atol=1e-4)
-
-
-def test_kernel_groups8_straggler_resume_bitwise(small_problem):
-    """Straggler compaction at groups=8 must still be an exact resume:
-    capped-pass + sorted-resume == single pass, bitwise."""
-    cfg, w, x0_b, scen_b = small_problem
-    u1, x1, st1 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=64,
-                                     interpret=True, groups=8)
-    u2, x2, st2 = cilqr_solve_pallas(cfg, w, x0_b, scen_b, window=64,
-                                     interpret=True, groups=8,
-                                     straggler_cap=3)
-    np.testing.assert_array_equal(np.asarray(u1), np.asarray(u2))
-    np.testing.assert_array_equal(np.asarray(x1), np.asarray(x2))
-    np.testing.assert_array_equal(np.asarray(st1.iters), np.asarray(st2.iters))
-    np.testing.assert_array_equal(np.asarray(st1.status),
-                                  np.asarray(st2.status))
 
 
 def test_kernel_episode_chunked_matches_scan():
@@ -569,9 +511,9 @@ def test_kernel_episode_chunked_matches_scan():
     args = (cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full_b,
             scen_b.road_borders)
     ego_s, us_s, st_s = run_mpc_kernel_scan(
-        *args, ticks=ticks, window=256, interpret=True)
+        *args, ticks=ticks, window=256, **KI)
     ego_c, us_c, st_c = run_mpc_kernel_chunked(
-        *args, ticks=ticks, chunk=2, window=256, interpret=True)
+        *args, ticks=ticks, chunk=2, window=256, **KI)
     np.testing.assert_array_equal(np.asarray(ego_s), np.asarray(ego_c))
     np.testing.assert_array_equal(np.asarray(us_s), np.asarray(us_c))
     np.testing.assert_array_equal(np.asarray(st_s.iters),
@@ -603,18 +545,35 @@ def test_kernel_episode_warm_tick_schedule_bitwise():
     args = (cfg, w, x0_b, scen_b.ref_line, scen_b.ref_velo, obs_full_b,
             scen_b.road_borders)
     ego_u, us_u, st_u = run_mpc_kernel_scan(
-        *args, ticks=ticks, window=256, interpret=True, straggler_cap=3)
+        *args, ticks=ticks, window=256, **KI, straggler_cap=3)
     ego_w, us_w, st_w = run_mpc_kernel_scan(
-        *args, ticks=ticks, window=256, interpret=True, straggler_cap=3,
+        *args, ticks=ticks, window=256, **KI, straggler_cap=3,
         straggler_cap_warm=2)
     np.testing.assert_array_equal(np.asarray(ego_u), np.asarray(ego_w))
     np.testing.assert_array_equal(np.asarray(us_u), np.asarray(us_w))
     np.testing.assert_array_equal(np.asarray(st_u.iters),
                                   np.asarray(st_w.iters))
     ego_c, us_c, st_c = run_mpc_kernel_chunked(
-        *args, ticks=ticks, chunk=2, window=256, interpret=True,
+        *args, ticks=ticks, chunk=2, window=256, **KI,
         straggler_cap=3, straggler_cap_warm=2)
     np.testing.assert_array_equal(np.asarray(ego_u), np.asarray(ego_c))
     np.testing.assert_array_equal(np.asarray(us_u), np.asarray(us_c))
     np.testing.assert_array_equal(np.asarray(st_u.iters),
                                   np.asarray(st_c.iters))
+
+
+@pytest.mark.parametrize("B,block,padded", [(8, 32, 32), (33, 32, 64),
+                                            (16384, 32, 16384), (5, 8, 8)])
+def test_padded_batch_rounds_up_to_block(B, block, padded):
+    """The kernel runs the batch padded to a multiple of its block, and
+    the block is a power of two (the Triton route's tensor sizes)."""
+    from ilqr_tpu.ops.pallas.cilqr_kernel import padded_batch
+
+    assert padded_batch(B, block) == padded
+
+
+def test_padded_batch_rejects_non_power_of_two_block():
+    from ilqr_tpu.ops.pallas.cilqr_kernel import padded_batch
+
+    with pytest.raises(AssertionError):
+        padded_batch(8, 24)

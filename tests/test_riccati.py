@@ -187,8 +187,8 @@ def test_cilqr_pscan_mode_converges_on_shipped_scenarios(name):
                       np.asarray(stats.final_cost))
     conv_s, conv_p = outs["scan"][1], outs["pscan"][1]
     # a single cold tick-0 solve often exits via lambda overflow even under
-    # exact reference semantics (the known oscillator tail,
-    # docs/PERFORMANCE.md "The non-converged tail"), so the scenario-level
+    # exact reference semantics (the known oscillator tail, NOTES.md), so
+    # the scenario-level
     # criterion is statistical: pscan's convergence rate and solution
     # quality must match the sequential mode's on a perturbed batch.
     assert conv_s.mean() > 0.4, "reference mode degenerate (sanity)"

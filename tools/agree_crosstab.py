@@ -1,18 +1,17 @@
 """Per-row f64-agreement cross-tab from a validation dump.
 
-Reads a ``validate_kernel_tpu.py --dump`` npz plus the per-row f64
+Reads a ``validate_kernel.py --dump`` npz plus the per-row f64
 statuses in tools/f64_anchors.json and prints the 2x2 contingency of
 (kernel matches f64 truth) x (XLA f32 matches f64 truth) over the full
-batch — the row-level evidence behind the round-5 conv-gate form
+batch — the row-level evidence behind the conv-gate form
 (gap_truth(kernel) <= max(0.03, gap_truth(xla)); docs/PARITY.md 4b):
 if the kernel's wrong rows are mostly rows the f32 XLA build also gets
 wrong (shared f32 decision-boundary chaos), the kernel's aggregate gap
 measures build chaos, not kernel error.
 
 Usage:
-  python tools/validate_kernel_tpu.py --scenario scenario_three_bend \
-      --dump tools/results/dump_r5
-  python tools/agree_crosstab.py tools/results/dump_r5/val_scenario_three_bend.npz
+  python tools/validate_kernel.py --scenario scenario_three_bend --dump dump
+  python tools/agree_crosstab.py dump/val_scenario_three_bend.npz
 """
 
 import json

@@ -1,8 +1,7 @@
 // Minimal Eigen-compatible shim -- just enough API surface to compile the
 // reference's solver sources (src/cilqr_solver.cpp, src/utils.cpp,
 // src/cubic_spline.cpp) UNMODIFIED on a box with no Eigen headers
-// (VERDICT r4 item #7: attempt the C++ reference build; Eigen is absent
-// and there is no network). This is NOT Eigen: eager evaluation, no
+// and no network. This is NOT Eigen: eager evaluation, no
 // expression templates, runtime dimension checks only. Numerical
 // semantics notes:
 //   - storage and linear indexing are column-major like Eigen;

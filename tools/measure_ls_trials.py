@@ -1,8 +1,8 @@
 """Measure the line-search trial-count distribution on the bench workload.
 
 The fused kernel's line search is an early-exit while loop that runs until
-EVERY lane in the (128*G)-lane tile is done; a single lane that exhausts all
-n_alphas=20 trials forces the whole tile through 20 trial
+EVERY scenario of the kernel's block is done; a single scenario that
+exhausts all n_alphas=20 trials forces the whole block through 20 trial
 (rollout+projection+cost) passes. This tool instruments the numpy oracle
 (exact reference semantics, tests/oracle_cilqr.py) on the bench workload
 (scenario_two_straight + perturbed_initial_states) to get:
@@ -12,10 +12,9 @@ n_alphas=20 trials forces the whole tile through 20 trial
     kernel actually pays) vs the per-lane sum (what a perfectly
     divergence-free machine would pay).
 
-This decides whether a chunked packed-alpha (breadth-first, sublane-packed)
-line search is worth building: it caps the per-iteration trial cost at
-ceil(20/8)=3 rollout chains + 20 projection-units instead of tile-max * (1
-rollout + 1 projection).
+This decides whether a chunked (breadth-first) line search pays: it caps the
+per-iteration trial cost at ceil(20/width) sweeps instead of block-max
+serial trials.
 """
 
 import os

@@ -1,27 +1,23 @@
-"""Analytic FLOPs/solve and MFU for the fused CILQR kernel.
+"""Analytic FLOPs/solve and utilization of the fused CILQR kernel.
 
-The north star demands a speed-of-light story per kernel; this computes
-the *useful* (algorithmically irreducible) floating-point work of one
-reference-semantics CILQR solve and divides achieved useful FLOP/s by
-chip peaks. "Useful" counts only the math the reference algorithm
-requires (src/cilqr_solver.cpp:337-461): nearest-point projections,
-trial rollouts, cost evaluations, derivative/Hessian assembly, and the
-backward Riccati recursion -- NOT implementation overheads (masked
-row extraction, lane padding, lockstep slack), which is exactly what
-makes the ratio an honest utilization number.
+Computes the *useful* (algorithmically irreducible) floating-point work of
+one reference-semantics CILQR solve and divides achieved useful FLOP/s by
+the device's peak. "Useful" counts only the math the reference algorithm
+requires (src/cilqr_solver.cpp:337-461): nearest-point projections, trial
+rollouts, cost evaluations, derivative/Hessian assembly, and the backward
+Riccati recursion -- NOT implementation overheads (padding, lockstep slack),
+which is what makes the ratio an honest utilization number.
 
 Counting rules: one FLOP per scalar +,-,*,/,compare,select; transcendental
-(sin/cos/exp) = 1 FLOP (hardware-rate-limited ops are counted once --
-this *under*states the VPU's actual effort, keeping MFU conservative).
+(sin/cos/exp) = 1 FLOP (this *under*states the work, keeping the ratio
+conservative).
 
-Usage: python tools/mfu.py [--solves-per-sec 59548] [--mean-iters 11.7]
-           [--mean-lane-trials 2.77] [--window 384] [--proj-rows 9]
-(defaults = the round-5 cold bench at the shipped configuration --
-proj_dot centered, w_back 24, target-velocity projection bound,
-tools/results/bench_cold_r5_b16384.log (batch 16384, the cold-mode
-default) -- and the oracle's mean per-lane
-trial count, tools/measure_ls_trials.py; --proj-rows 0 recovers the
-full-window accounting)
+Usage: python tools/mfu.py --device-kind "NVIDIA H100 80GB HBM3"
+           --solves-per-sec S --mean-iters I [--mean-lane-trials T]
+           [--window 384] [--proj-rows 9]
+(S and I from a bench.py run on that device; T from
+tools/measure_ls_trials.py; --proj-rows 0 recovers the full-window
+accounting)
 """
 
 import argparse
@@ -38,7 +34,7 @@ def flops_per_solve(N=30, M=3, W=384, mean_iters=11.6, mean_trials=2.77):
         - projection of the rolled trajectory: (N+1) steps x W window rows x
           (dx,dy,dx^2+dy^2, running-min compare+select) = 6/row
           (get_ref_exact_points, src/cilqr_solver.cpp:289-314, as a dense
-          nearest-point scan -- the TPU-native formulation)
+          nearest-point scan)
         - total cost: per step: 2 tracking quadratics ~24, 6 state bounds +
           2M obstacle ellipsoid constraints x (margin eval ~12 + exp barrier
           ~4) -- get_total_cost, src/cilqr_solver.cpp:199-287 ~= 220/step
@@ -56,7 +52,7 @@ def flops_per_solve(N=30, M=3, W=384, mean_iters=11.6, mean_trials=2.77):
 
 
 def mean_scanned_rows(N=30, W=384, proj_rows=9, w_back=24, slack=16):
-    """Mean per-step rows actually scanned under the round-5 per-step
+    """Mean per-step rows actually scanned under the per-step
     search bound row_limits[k] = round8(w_back + slack + k * proj_rows)
     capped at W (cilqr_kernel.derive_proj_rows). Passing this as the
     effective window keeps the FLOP count honest: rows the kernel
@@ -67,16 +63,33 @@ def mean_scanned_rows(N=30, W=384, proj_rows=9, w_back=24, slack=16):
     return tot / (N + 1)
 
 
+# Published dense peaks, keyed by jax.devices()[0].device_kind. Source:
+# NVIDIA H100 SXM data sheet (700 W power limit): 67 TFLOP/s FP32 outside
+# the tensor cores, 3.35 TB/s HBM3. The kernel's work is scalar FP32 (no
+# matrix products), so the FP32 rate is its compute ceiling.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"fp32_flops": 67e12, "hbm_bytes": 3.35e12},
+}
+
+
+def peaks(device_kind: str) -> dict:
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peaks for device kind {device_kind!r}")
+    return PEAKS[device_kind]
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--solves-per-sec", type=float, default=59548.0)
-    ap.add_argument("--mean-iters", type=float, default=11.7)
+    ap.add_argument("--device-kind", required=True,
+                    help="jax.devices()[0].device_kind of the measured card")
+    ap.add_argument("--solves-per-sec", type=float, required=True)
+    ap.add_argument("--mean-iters", type=float, required=True)
     ap.add_argument("--mean-lane-trials", type=float, default=2.77)
     ap.add_argument("--window", type=int, default=384)
     ap.add_argument("--proj-rows", type=int, default=9,
-                    help="per-step search-bound rows (round-5 default "
-                    "factor 1.1 on scenario_two_straight = 9); 0 = full "
-                    "window scans")
+                    help="per-step search-bound rows (the bench's factor "
+                    "1.1 on scenario_two_straight = 9); 0 = full window "
+                    "scans")
     ap.add_argument("--N", type=int, default=30)
     ap.add_argument("--M", type=int, default=3)
     args = ap.parse_args()
@@ -89,21 +102,14 @@ def main():
     fps = flops_per_solve(args.N, args.M, eff_w, args.mean_iters,
                           args.mean_lane_trials)
     useful = fps * args.solves_per_sec
-    # v5e peaks: 197 TFLOP/s bf16 (MXU, the chip's headline peak) --
-    # public spec. VPU estimate: 8x128 lanes x 4 ALUs x 2 (FMA) x ~0.94 GHz
-    # ~= 7.7 TFLOP/s f32 elementwise. This kernel contains no matmuls
-    # larger than 4x4 (unrolled on the VPU), so the VPU number is the
-    # relevant speed-of-light; the MXU MFU is reported for honesty.
-    peak_mxu_bf16 = 197e12
-    peak_vpu_f32 = 7.7e12
+    peak = peaks(args.device_kind)["fp32_flops"]
     print(f"useful FLOPs/solve ~= {fps/1e6:.2f} MFLOP "
           f"(window {args.window}, mean_iters {args.mean_iters}, "
           f"mean lane trials {args.mean_lane_trials})")
     print(f"achieved useful {useful/1e9:.1f} GFLOP/s at "
           f"{args.solves_per_sec:,.0f} solves/s")
-    print(f"MFU vs 197 TFLOP/s bf16 MXU peak: {100*useful/peak_mxu_bf16:.3f}%")
-    print(f"utilization vs ~7.7 TFLOP/s f32 VPU estimate: "
-          f"{100*useful/peak_vpu_f32:.2f}%")
+    print(f"utilization vs the {peak / 1e12:.0f} TFLOP/s FP32 peak of "
+          f"{args.device_kind}: {100 * useful / peak:.3f}%")
     # share of the trial projection term (the probe-measured dominant cost)
     proj = (args.mean_iters * args.mean_lane_trials
             * (args.N + 1) * eff_w * 6)

@@ -5,7 +5,7 @@
 # XLA:CPU compiler segfault (backend_compile_and_load, observed at
 # tests/test_viz.py::test_cilqr_demo_cli_smoke after the long
 # test_pallas_kernel/test_sharding block -- the same file passes alone in
-# seconds; round-3 VERDICT, NOTES.md "XLA:CPU segfault family"). Running
+# seconds; NOTES.md "XLA:CPU segfault family"). Running
 # each test file in a fresh interpreter removes the cross-file compiler
 # state the crash needs and contains any future instance to one file's
 # result instead of killing the whole net.
